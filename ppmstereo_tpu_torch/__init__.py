@@ -1,0 +1,19 @@
+"""PPMStereo in PyTorch and CUDA: the port of `ppmstereo_tpu` to an NVIDIA
+H100 (Hopper, sm_90a).
+
+The JAX package stays the reference; this package imports nothing of it
+(and nothing of JAX). Module paths mirror the JAX package:
+
+  ops/      plain tensor functions (geometry, padding, upsampling, correlation)
+  kernels/  hand-written CUDA kernels, their plain PyTorch versions, the nvcc build
+  csrc/     the kernels' CUDA C++ sources
+  nn/       building blocks as nn.Modules (encoders, attention, GRU, heads)
+  models/   the PPMStereo graph, the sliding-window predictor, the zoo
+  utils/    device selection, precision settings, the weight carry
+
+Public functions keep the JAX layouts: (B, T, H, W, C) for model inputs and
+outputs, (N, 2, H, W, 3) in [0, 255] for a predictor's stereo video.
+Entry points run on `cuda` unless the caller passes `device="cpu"`.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,223 @@
+"""PPMStereo in test mode: pick-and-play memory video stereo.
+
+Counterpart of ppmstereo_tpu/models/ppm_stereo.py (`PPMUpdateLoop`,
+`PPMStereo`) for cold inference: a cascaded 1/16 -> 1/8 -> 1/4 refinement
+with an SST attention block, a quality-scored top-k frame memory ("pick")
+and attention over the picked frames ("play"). The refinement loop is a
+Python loop. The play attention runs through the hand-written CUDA kernel
+on a card (`kernels/play_attention.py`).
+
+Tensors are (B, T, H, W, C) at the public boundary; images are in [0, 255].
+The bf16 policy follows the JAX modules' `dtype=`: each layer computes in
+`dtype`, normalisation statistics, the correlation, the frame scores and
+the flow stay in f32, and q/k/v are rounded to bf16 before the play
+attention whatever the policy.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ppmstereo_tpu_torch.kernels.play_attention import play_attention, play_scale
+from ppmstereo_tpu_torch.nn.attention import temporal_positional_encoding
+from ppmstereo_tpu_torch.nn.convnext import ContextNet
+from ppmstereo_tpu_torch.nn.encoder import BasicEncoder
+from ppmstereo_tpu_torch.nn.motion import AttentionQK
+from ppmstereo_tpu_torch.nn.sst import SSTBlock
+from ppmstereo_tpu_torch.nn.update import HIDDEN_DIM, SequenceUpdateBlock3D
+from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
+from ppmstereo_tpu_torch.ops.geometry import (
+    adaptive_max_pool2d,
+    avg_pool2d,
+    coords_grid_x,
+    cosine_similarity_matrix,
+    interp_ac_false,
+    interp_bilinear,
+)
+from ppmstereo_tpu_torch.ops.upsample import convex_upsample_3d
+
+
+# The shipped configuration (the JAX package's `PPMStereoConfig()` defaults)
+DIM = 256  # fnet / SST features: the GRU state (HIDDEN_DIM) and the context input
+CONTEXT_DIM = 128
+SST_DEPTH = 4
+TOP_K = 5
+CORR_LEVELS = 4
+CORR_RADIUS = 4
+
+
+class PPMUpdateLoop(nn.Module):
+    """One cascade stage: `iters` pick-and-play iterations."""
+
+    def __init__(self, iters: int, dtype: torch.dtype, with_attention: bool = False,
+                 with_init_hidden: bool = False):
+        super().__init__()
+        self.iters = iters
+        self.dtype = dtype
+        self.update_block = SequenceUpdateBlock3D(with_attention, with_init_hidden, dtype)
+
+    def _play(self, query_pe, key_aug, value, idx, score_norm):
+        """Gather the picked memory frames and attend over them.
+
+        query_pe (B,T,H,W,C); key_aug (B,T,H,W,2C); value (B,T,H,W,C);
+        idx (B,T,k) picked frame indices per target frame; score_norm (B,T,k).
+        Returns (B,T,H,W,C) in self.dtype."""
+        b, t, h, w, c = query_pe.shape
+        k = idx.shape[-1]
+        scale = play_scale(c)
+        rows = torch.arange(b, device=idx.device)[:, None, None]
+        sel_key = key_aug[rows, idx]  # (B,T,k,H,W,2C), an exact index gather
+        sel_val = value[rows, idx]
+        modw = score_norm[:, :, :, None, None, None].to(sel_key.dtype)
+        sel_key = sel_key[..., :c] * modw + sel_key[..., c:]
+        q_tok = query_pe.reshape(b * t, h * w, c).to(torch.bfloat16)
+        k_tok = sel_key.reshape(b * t, k * h * w, c).to(torch.bfloat16)
+        v_tok = sel_val.reshape(b * t, k * h * w, c).to(torch.bfloat16)
+        out = play_attention(q_tok.contiguous(), k_tok.contiguous(),
+                             v_tok.contiguous(), scale)
+        return out.reshape(b, t, h, w, c).to(self.dtype)
+
+    def forward(self, pyramid, coords0, query_pe, key_aug, sim_score,
+                flow, net, inp, motion_hidden, picks: list | None = None):
+        """Returns (flow, flow_up, net, motion_hidden, last uncertainty).
+
+        picks: when a list is given, each iteration's top-k frame indices
+        are appended to it (the tests compare them with the JAX model's)."""
+        dtype = self.dtype
+        ub = self.update_block
+        b, t, h, w, _ = flow.shape
+        k = min(TOP_K, t)  # clips shorter than top_k pick every frame
+        strive = torch.ones(b, t, t, device=flow.device)
+        uncertainty = None
+        for _ in range(self.iters):
+            # 1. pyramid lookup around the current disparity (f32)
+            coords_x = coords0 + flow[..., 0].reshape(b * t, h, w)
+            corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS)
+            corrs = corrs.reshape(b, t, h, w, -1).to(dtype)
+            # 2. motion features, recurrent state, value
+            motion, motion_hidden, value = ub.get_motion_and_value(
+                flow.to(dtype), corrs, motion_hidden)
+            # 3. quality scores
+            uncertainty = ub.get_uncertainty(torch.cat([net, value], dim=-1))
+            penalty = torch.exp(-strive / (strive.sum(-1, keepdim=True) + t))
+            frame_conf = uncertainty.float().mean(dim=(2, 3, 4))  # (B, T)
+            frame_score = penalty * sim_score + frame_conf[:, None, :]
+            # 4. pick the top-k frames per target frame, count their use
+            sel_score, idx = torch.topk(frame_score, k, dim=-1)
+            if picks is not None:
+                picks.append(idx)
+            strive = strive + F.one_hot(idx, t).sum(dim=-2).float()
+            score_norm = sel_score / sel_score.mean(dim=(0, 2), keepdim=True)
+            # 5. play: attend over the picked memory
+            hidden_states = self._play(query_pe, key_aug, value, idx, score_norm)
+            motion_global = motion + ub.aggregator.beta.to(dtype) * hidden_states
+            # 6. GRU update and flow head
+            net, delta = ub(net, inp, motion, motion_global)
+            flow = flow + delta.float()
+        flow_up = convex_upsample_3d(flow, ub.get_mask(net), rate=4)
+        return flow, flow_up, net, motion_hidden, uncertainty
+
+
+class PPMStereo(nn.Module):
+    """Full test-mode forward over (B, T, H, W, 3) [0, 255] stereo clips ->
+    (disparity (B,T,H,W,1) signed x-flow, uncertainty (B,T,H,W,1))."""
+
+    def __init__(self, iters: int = 10, mixed_precision: bool = True):
+        super().__init__()
+        self.dtype = dtype = torch.bfloat16 if mixed_precision else torch.float32
+        self.fnet = BasicEncoder(DIM, dtype)
+        self.cnet = ContextNet(DIM, dtype)
+        for i in range(3):
+            self.add_module(f"att_{i}", AttentionQK(DIM - HIDDEN_DIM, CONTEXT_DIM, dtype))
+        self.sst = SSTBlock(DIM, SST_DEPTH, dtype)
+        half = max(iters // 2, 1)
+        self.update_block16 = PPMUpdateLoop(half, dtype, with_attention=True,
+                                            with_init_hidden=True)
+        self.update_block08 = PPMUpdateLoop(half, dtype)
+        self.update_block04 = PPMUpdateLoop(iters, dtype)
+
+    def compute_qk_similarity(self, query, key):
+        """Cosine similarity of pooled per-frame descriptors:
+        (B,T,H,W,C) -> (B,T,T)."""
+        b, t, h, w, _ = query.shape
+        oh, ow = max(h // 4, 1), max(w // 4, 1)
+        qv = adaptive_max_pool2d(query.float(), (oh, ow)).mean(dim=-1).reshape(b, t, oh * ow)
+        kv = adaptive_max_pool2d(key.float(), (oh, ow)).mean(dim=-1).reshape(b, t, oh * ow)
+        return cosine_similarity_matrix(qv, kv)
+
+    def _stage_inputs(self, stage: int, fmap1, fmap2, inp):
+        """Correlation pyramid, coordinates, q/k with the temporal PE, and
+        the frame similarity of one stage."""
+        b, t, h, w, _ = fmap1.shape
+        pyramid = build_corr_pyramid(fmap1.reshape(b * t, h, w, -1),
+                                     fmap2.reshape(b * t, h, w, -1),
+                                     CORR_LEVELS)
+        coords0 = coords_grid_x(b * t, h, w, device=fmap1.device)
+        query, key = getattr(self, f"att_{stage}")(inp)
+        sim_score = self.compute_qk_similarity(query, key)
+        te = torch.from_numpy(temporal_positional_encoding(t, CONTEXT_DIM))
+        te_b = te.to(fmap1.device, self.dtype)[None, :, None, None, :]
+        key_aug = torch.cat([key, te_b.expand(key.shape)], dim=-1)
+        query_pe = query + te_b
+        return pyramid, coords0, query_pe, key_aug, sim_score
+
+    def encode_frames(self, image1, image2):
+        """Per-frame features: fmap1, fmap2 (fnet) and cnet4/8/16 (cnet)."""
+        b = image1.shape[0]
+        image1 = (2.0 * (image1 / 255.0) - 1.0).to(self.dtype)
+        image2 = (2.0 * (image2 / 255.0) - 1.0).to(self.dtype)
+        fmaps = self.fnet(torch.cat([image1, image2], dim=0))
+        cnet4, cnet8, cnet16 = self.cnet(image1)
+        return dict(fmap1=fmaps[:b], fmap2=fmaps[b:], cnet4=cnet4, cnet8=cnet8, cnet16=cnet16)
+
+    def _context(self, feat, cnet_feat):
+        """(net, inp): features averaged with the cnet features, split into
+        the GRU state (tanh) and the context input (relu)."""
+        net = (feat[..., :HIDDEN_DIM] + cnet_feat[..., :HIDDEN_DIM]) / 2.0
+        inp = (feat[..., HIDDEN_DIM:] + cnet_feat[..., HIDDEN_DIM:]) / 2.0
+        return torch.tanh(net), F.relu(inp)
+
+    @torch.no_grad()
+    def forward(self, image1, image2, picks: list | None = None):
+        """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty).
+
+        picks: optional list that collects every iteration's top-k indices,
+        stage by stage."""
+        feats = self.encode_frames(image1, image2)
+        fmap1, fmap2 = feats["fmap1"], feats["fmap2"]
+        b, t, h4, w4, _ = fmap1.shape
+        net, inp = self._context(fmap1, feats["cnet4"])
+
+        f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
+        net16, inp16 = self._context(f1_16, feats["cnet16"])
+        h8, w8 = h4 // 2, w4 // 2
+        f1_8 = (avg_pool2d(fmap1, 2) + interp_bilinear(f1_16, (h8, w8))) / 2.0
+        f2_8 = (avg_pool2d(fmap2, 2) + interp_bilinear(f2_16, (h8, w8))) / 2.0
+        net8, inp8 = self._context(f1_8, feats["cnet8"])
+
+        # stage 1/16
+        flow16 = torch.zeros(b, t, h4 // 4, w4 // 4, 2, device=fmap1.device)
+        mh16 = self.update_block16.update_block.init_motion_hidden_state(inp16)
+        _, flow_up16, net16, mh16, _ = self.update_block16(
+            *self._stage_inputs(0, f1_16, f2_16, inp16), flow16, net16, inp16, mh16,
+            picks=picks)
+        # stage 1/8
+        flow8 = -(h8 / flow_up16.shape[2]) * interp_bilinear(flow_up16, (h8, w8))
+        mh8 = interp_bilinear(mh16, (h8, w8))
+        net8 = (net8 + interp_bilinear(net16, (h8, w8))) / 2.0
+        _, flow_up8, net8, mh8, _ = self.update_block08(
+            *self._stage_inputs(1, f1_8, f2_8, inp8), flow8, net8, inp8, mh8,
+            picks=picks)
+        # stage 1/4
+        flow4 = -(h4 / flow_up8.shape[2]) * interp_bilinear(flow_up8, (h4, w4))
+        mh4 = interp_bilinear(mh8, (h4, w4))
+        net = (net + interp_bilinear(net8, (h4, w4))) / 2.0
+        _, flow_up4, _, _, unc_last = self.update_block04(
+            *self._stage_inputs(2, fmap1, fmap2, inp), flow4, net, inp, mh4,
+            picks=picks)
+
+        disparity = flow_up4[..., :1]
+        uncertainty = interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
+        return disparity, uncertainty

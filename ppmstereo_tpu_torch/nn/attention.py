@@ -1,0 +1,165 @@
+"""Sinusoidal encodings, LoFTR linear attention and the time/space
+attention blocks on (B, T, H, W, C) videos (counterpart of
+ppmstereo_tpu/nn/attention.py). Products that the JAX package accumulates
+in f32 are taken in f32 here too; the rest run in the module dtype.
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ppmstereo_tpu_torch.nn.common import Dense, Linear
+from ppmstereo_tpu_torch.nn.norm import LayerNorm
+
+
+def position_encoding_sine(h: int, w: int, d_model: int) -> np.ndarray:
+    """2-D sinusoidal PE, (H, W, C), LoFTR temp_bug_fix variant: 1-based
+    positions, channels interleaved [sin x, cos x, sin y, cos y]."""
+    pe = np.zeros((h, w, d_model), dtype=np.float32)
+    y_pos = np.arange(1, h + 1, dtype=np.float32)[:, None, None]
+    x_pos = np.arange(1, w + 1, dtype=np.float32)[None, :, None]
+    div = np.exp(
+        np.arange(0, d_model // 2, 2, dtype=np.float32)
+        * (-math.log(10000.0) / (d_model // 2))
+    )[None, None, :]
+    pe[:, :, 0::4] = np.sin(x_pos * div)
+    pe[:, :, 1::4] = np.cos(x_pos * div)
+    pe[:, :, 2::4] = np.sin(y_pos * div)
+    pe[:, :, 3::4] = np.cos(y_pos * div)
+    return pe
+
+
+def temporal_positional_encoding(t: int, channels: int, normalize: bool = True,
+                                 scale: float = 1.0) -> np.ndarray:
+    """Sinusoidal temporal PE, (T, C)."""
+    pos = np.arange(t, dtype=np.float32)
+    if normalize:
+        pos = pos / max(t - 1, 1) * scale
+    div = 1.0 / (10000.0 ** (np.arange(0, channels, 2, dtype=np.float32) / channels))
+    ang = pos[:, None] * div[None, :]
+    pe = np.zeros((t, channels), dtype=np.float32)
+    pe[:, 0::2] = np.sin(ang)
+    pe[:, 1::2] = np.cos(ang)
+    return pe
+
+
+def linear_attention(q, k, v, eps: float = 1e-6):
+    """'Transformers are RNNs' linear attention, elu + 1 feature map.
+
+    q: (N, L, H, D), k/v: (N, S, H, D) -> (N, L, H, D)."""
+    q = F.elu(q) + 1
+    k = F.elu(k) + 1
+    v_length = v.shape[1]
+    v = v / v_length
+    kv = torch.einsum("nshd,nshv->nhdv", k.float(), v.float())
+    z = 1.0 / (torch.einsum("nlhd,nhd->nlh", q.float(), k.sum(dim=1).float()) + eps)
+    out = torch.einsum("nlhd,nhdv->nlhv", q, kv.to(q.dtype)) * z.to(q.dtype)[..., None]
+    return out * v_length
+
+
+class LoFTREncoderLayer(nn.Module):
+    """Projections, linear attention, merge and an MLP residual."""
+
+    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.nhead = nhead
+        self.q_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
+        self.k_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
+        self.v_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
+        self.merge = Linear(d_model, d_model, use_bias=False, dtype=dtype)
+        self.LayerNorm_0 = LayerNorm(d_model, 1e-5)
+        self.Dense_0 = Linear(2 * d_model, 2 * d_model, use_bias=False, dtype=dtype)
+        self.Dense_1 = Linear(2 * d_model, d_model, use_bias=False, dtype=dtype)
+        self.LayerNorm_1 = LayerNorm(d_model, 1e-5)
+
+    def forward(self, x: torch.Tensor, source: torch.Tensor) -> torch.Tensor:
+        n, _, d = x.shape
+        heads = (n, -1, self.nhead, d // self.nhead)
+        q = self.q_proj(x).reshape(heads)
+        k = self.k_proj(source).reshape(heads)
+        v = self.v_proj(source).reshape(heads)
+        message = linear_attention(q, k, v).reshape(n, -1, d)
+        message = self.LayerNorm_0(self.merge(message))
+        message = self.Dense_0(torch.cat([x, message], dim=-1))
+        message = self.LayerNorm_1(self.Dense_1(F.relu(message)))
+        return x + message
+
+
+class LocalFeatureTransformer(nn.Module):
+    """Self or cross LoFTR layers over two token sets."""
+
+    def __init__(self, d_model: int, nhead: int, layer_names: tuple,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layer_names = tuple(layer_names)
+        for i, _ in enumerate(self.layer_names):
+            self.add_module(f"layer_{i}", LoFTREncoderLayer(d_model, nhead, dtype))
+
+    def forward(self, feat0, feat1):
+        for i, name in enumerate(self.layer_names):
+            layer = getattr(self, f"layer_{i}")
+            if name == "self":
+                feat0 = layer(feat0, feat0)
+                feat1 = layer(feat1, feat1)
+            elif name == "cross":
+                # sequential: feat1 attends to the already-updated feat0
+                feat0 = layer(feat0, feat1)
+                feat1 = layer(feat1, feat0)
+            else:
+                raise KeyError(name)
+        return feat0, feat1
+
+
+def _degenerate_attention(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Softmax attention with q = k = v = x split into heads (no
+    projections): (B, N, C) -> (B, N, C)."""
+    b, n, c = x.shape
+    dh = c // num_heads
+    q = x.reshape(b, n, num_heads, dh).transpose(1, 2)
+    logits = torch.matmul(q.float(), q.float().transpose(-1, -2))
+    probs = torch.softmax(logits * (dh**-0.5), dim=-1).to(x.dtype)
+    out = torch.matmul(probs, q)
+    return out.transpose(1, 2).reshape(b, n, c)
+
+
+class TimeAttnBlock(nn.Module):
+    """Per-pixel temporal attention with a zero-initialised output
+    projection. Input (B, T, H, W, C)."""
+
+    def __init__(self, dim: int = 256, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads = num_heads
+        self.LayerNorm_0 = LayerNorm(dim, 1e-5)
+        self.proj = Dense(dim, dim, dtype=dtype)
+        self.temporal_fc = Linear(dim, dim, dtype=dtype)
+        with torch.no_grad():
+            self.temporal_fc.weight.zero_()
+            self.temporal_fc.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        tokens = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
+        y = _degenerate_attention(self.LayerNorm_0(tokens), self.num_heads)
+        y = self.temporal_fc(self.proj(y))
+        y = y.reshape(b, h, w, t, c).permute(0, 3, 1, 2, 4)
+        return x + y
+
+
+class SpaceAttnBlock(nn.Module):
+    """Per-frame spatial LoFTR self-attention."""
+
+    def __init__(self, dim: int = 256, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.LoFTREncoderLayer_0 = LoFTREncoderLayer(dim, num_heads, dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, t, h, w, c = x.shape
+        tokens = x.reshape(b * t, h * w, c)
+        return self.LoFTREncoderLayer_0(tokens, tokens).reshape(b, t, h, w, c)

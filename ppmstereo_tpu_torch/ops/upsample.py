@@ -1,0 +1,45 @@
+"""RAFT-style 3-D convex upsampling, channels-last.
+
+Counterpart of ppmstereo_tpu/ops/upsample.py (the 3-D variant the shipped
+config uses). Mask channels are laid out as [tap(27), ry, rx], taps
+row-major over the (dt, dy, dx) offsets in {-1, 0, 1}, zero padding.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def _neighborhood_3d(x: torch.Tensor) -> torch.Tensor:
+    """Stack the 3x3x3 zero-padded neighbourhood: (B,T,H,W,C) -> (B,T,H,W,27,C)."""
+    t, h, w = x.shape[-4], x.shape[-3], x.shape[-2]
+    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    taps = [
+        xp[:, dt : dt + t, dy : dy + h, dx : dx + w, :]
+        for dt in range(3)
+        for dy in range(3)
+        for dx in range(3)
+    ]
+    return torch.stack(taps, dim=-2)
+
+
+def _pixel_shuffle(up: torch.Tensor, rate: int) -> torch.Tensor:
+    """(..., H, W, r*r, C) -> (..., H*r, W*r, C) with [ry, rx] subpixel order."""
+    *lead, h, w, _, c = up.shape
+    n = len(lead)
+    up = up.reshape(*lead, h, w, rate, rate, c)
+    up = up.permute(*range(n), n, n + 2, n + 1, n + 3, n + 4)
+    return up.reshape(*lead, h * rate, w * rate, c)
+
+
+def convex_upsample_3d(flow: torch.Tensor, mask: torch.Tensor, rate: int = 4) -> torch.Tensor:
+    """flow (B,T,H,W,2), mask (B,T,H,W,27*r*r) -> (B,T,H*r,W*r,2), in f32.
+
+    Per output subpixel, a softmax-convex combination of the 3x3x3
+    neighbourhood of rate * flow; only H and W are upsampled."""
+    b, t, h, w, _ = flow.shape
+    weights = torch.softmax(mask.reshape(b, t, h, w, 27, rate * rate).float(), dim=-2)
+    nb = _neighborhood_3d(rate * flow.float())  # (B,T,H,W,27,2)
+    up = torch.einsum("bthwkr,bthwkc->bthwrc", weights, nb)
+    return _pixel_shuffle(up, rate)

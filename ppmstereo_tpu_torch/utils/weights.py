@@ -1,0 +1,67 @@
+"""Carry weights from the JAX package's parameter layout into the port.
+
+The JAX package's parameters, flattened to `{"params/a/b/kernel": array}`
+(the format of `checkpoints/anchor_r5.npz`), become a `state_dict` of the
+port by a rename and layout transposes: the port's submodules carry the
+flax path names, so `params/a/b/<leaf>` is `a.b.<leaf>` with
+
+  kernel -> weight   Dense (in, out) -> (out, in); Conv HWIO -> OIHW and
+                     DHWIO -> OIDHW
+  scale  -> weight   LayerNorm
+  bias, gamma, beta, time_embed keep their names and layouts.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+
+
+def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested {"params": {...}} mapping -> flat {"params/a/b/leaf": array}."""
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        if isinstance(val, Mapping):
+            flat.update(flatten_params(val, path))
+        else:
+            flat[path] = np.asarray(val)
+    return flat
+
+
+def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
+    """Flat flax parameters -> the port's state_dict (f32 tensors)."""
+    state = {}
+    for path, arr in flat.items():
+        parts = path.split("/")
+        if parts[0] == "params":
+            parts = parts[1:]
+        leaf = parts[-1]
+        arr = np.asarray(arr, dtype=np.float32)
+        if leaf == "kernel":
+            if arr.ndim not in _KERNEL_PERM:
+                raise ValueError(f"{path}: unexpected kernel rank {arr.ndim}")
+            arr = arr.transpose(_KERNEL_PERM[arr.ndim])
+            leaf = "weight"
+        elif leaf == "scale":
+            leaf = "weight"
+        state[".".join(parts[:-1] + [leaf])] = torch.from_numpy(np.array(arr, order="C"))
+    return state
+
+
+def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
+    """Load flat flax parameters into `model`; every parameter of the model
+    must be given and every given parameter must exist (strict)."""
+    model.load_state_dict(flax_to_state_dict(flat), strict=True)
+
+
+def load_npz(path: str | Path) -> dict[str, np.ndarray]:
+    """Read a flat parameter file such as checkpoints/anchor_r5.npz."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
