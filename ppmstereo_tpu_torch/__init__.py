@@ -9,7 +9,11 @@ The JAX package stays the reference; this package imports nothing of it
   csrc/     the kernels' CUDA C++ sources
   nn/       building blocks as nn.Modules (encoders, attention, GRU, heads)
   models/   the PPMStereo graph, the sliding-window predictor, the zoo
-  utils/    device selection, precision settings, the weight carry
+  data/     the synthetic training set, the augmentor, the batch loader
+  train/    loss, optimiser, train step, checkpoints, the training loop
+  cli/      command-line entry points (train)
+  utils/    device selection, precision settings, the weight carry and
+            export, initialisation, config overrides, metrics logging
 
 Public functions keep the JAX layouts: (B, T, H, W, C) for model inputs and
 outputs, (N, 2, H, W, 3) in [0, 255] for a predictor's stereo video.

@@ -1,0 +1,64 @@
+"""Training entry point of the port, with the JAX CLI's flag names
+(ppmstereo_tpu/cli/train.py) for a one-card run, plus `--device`:
+
+    python -m ppmstereo_tpu_torch.cli.train --num_steps 200000 \\
+        --batch_size 2 --lr 0.0003 --sample_len 5 --train_iters 10
+
+    # a tiny run on the CPU
+    python -m ppmstereo_tpu_torch.cli.train --device cpu --image_size 64 128 \\
+        --sample_len 3 --train_iters 1 --num_steps 2
+
+Trailing KEY=VALUE arguments override TrainConfig fields (e.g. log_freq=1).
+Runs on `cuda` unless `--device` names another device; raises without a
+card. The JAX CLI's mesh flags wait for the multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("ppmstereo_tpu_torch.train")
+    p.add_argument("--device", default="cuda", help="torch device (cuda | cuda:N | cpu)")
+    p.add_argument("--name", default="ppmstereo", help="ppmstereo (the only model ported)")
+    p.add_argument("--ckpt_path", default="./outputs/train")
+    p.add_argument("--num_steps", type=int, default=200_000)
+    p.add_argument("--batch_size", type=int, default=2)
+    p.add_argument("--lr", type=float, default=3e-4)
+    p.add_argument("--sample_len", type=int, default=5)
+    p.add_argument("--train_iters", type=int, default=10)
+    p.add_argument("--image_size", type=int, nargs=2, default=[320, 512])
+    p.add_argument("--no_mixed_precision", action="store_true")
+    p.add_argument("--save_freq", type=int, default=5000)
+    p.add_argument("--num_workers", type=int, default=4)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("overrides", nargs="*", help="dotted KEY=VALUE overrides")
+    args = p.parse_args(argv)
+
+    logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
+
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
+    from ppmstereo_tpu_torch.utils.config import apply_overrides
+
+    cfg = TrainConfig(
+        model_name=args.name,
+        num_steps=args.num_steps,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        sample_len=args.sample_len,
+        train_iters=args.train_iters,
+        crop_size=tuple(args.image_size),
+        mixed_precision=not args.no_mixed_precision,
+        exp_dir=args.ckpt_path,
+        save_freq=args.save_freq,
+        num_workers=args.num_workers,
+        seed=args.seed,
+    )
+    apply_overrides(cfg, args.overrides)
+    return train(cfg, device=args.device)
+
+
+if __name__ == "__main__":
+    main()

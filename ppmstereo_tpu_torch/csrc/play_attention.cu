@@ -31,6 +31,15 @@
 //     bank conflicts.
 // wgmma, TMA and warp specialisation are left to the PR that makes it fast.
 // The kernel allocates nothing; the caller passes the output buffer.
+//
+// With a residual buffer (`lse`, training's forward) the kernel also writes
+// each row's base-2 log-sum-exp, lse = m + log2(l) with m the row's max of
+// scale*log2(e)*q.k and l its sum of exp2(. - m): one f32 per row, (B, Lq).
+// That replaces the Pallas `_flash_kernel(save_residuals=True)` (reached
+// through `_flash_fwd_res`), which writes m and l as (B, Lq, 128) lane tiles.
+// The backward kernels (play_attention_bwd.cu) recompute the normalised
+// probabilities as exp2(scale*log2(e)*q.k - lse). The output o is computed
+// by the same instructions with or without the residual.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,7 +126,8 @@ __global__ void __launch_bounds__(NTHREADS)
     play_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o, int Lq, int Lk,
+                              __nv_bfloat16* __restrict__ o,
+                              float* __restrict__ lse, int Lq, int Lk,
                               float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -273,6 +283,26 @@ __global__ void __launch_bounds__(NTHREADS)
           __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
     }
   }
+  if (lse != nullptr && t == 0) {
+    float* lb = lse + static_cast<size_t>(b) * Lq;
+    if (r0 < Lq) lb[r0] = row_max[0] + log2f(l0);
+    if (r1 < Lq) lb[r1] = row_max[1] + log2f(l1);
+  }
+}
+
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Lq, int Lk, float scale_log2, void* stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      play_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((Lq + BM - 1) / BM, B);
+  play_attention_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
+      Lq, Lk, scale_log2);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -283,15 +313,15 @@ __global__ void __launch_bounds__(NTHREADS)
 extern "C" int play_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, int B, int Lq, int Lk,
                                   float scale_log2, void* stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      play_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((Lq + BM - 1) / BM, B);
-  play_attention_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), Lq,
-      Lk, scale_log2);
-  return static_cast<int>(cudaGetLastError());
+  return launch(q, k, v, o, nullptr, B, Lq, Lk, scale_log2, stream);
+}
+
+// As play_attention_fwd, and writes lse (B, Lq) f32: each row's base-2
+// log-sum-exp of scale * log2(e) * q.k.
+extern "C" int play_attention_fwd_res(const void* q, const void* k,
+                                      const void* v, void* o, void* lse, int B,
+                                      int Lq, int Lk, float scale_log2,
+                                      void* stream) {
+  return launch(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, scale_log2,
+                stream);
 }

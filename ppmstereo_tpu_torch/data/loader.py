@@ -1,0 +1,83 @@
+"""Threaded prefetching batch loader (counterpart of
+ppmstereo_tpu/data/loader.py): dataset work is numpy, which releases the
+GIL, so a thread pool in the training process replaces worker processes.
+Each epoch reshuffles with a seeded generator; the per-sample randomness
+belongs to the augmentor.
+
+Batches are channels-last numpy dicts: left/right (B, T, H, W, 3) float32,
+disparity (B, T, H, W, 1), valid (B, T, H, W).
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+
+
+def collate(samples: list[dict]) -> dict:
+    batch = {
+        "left": np.stack([s["img"][:, 0] for s in samples]),
+        "right": np.stack([s["img"][:, 1] for s in samples]),
+    }
+    if "disp" in samples[0]:
+        batch["disparity"] = np.stack([s["disp"][:, 0] for s in samples])
+        batch["valid"] = np.stack([s["valid"][:, 0] for s in samples])
+    return batch
+
+
+class PrefetchLoader:
+    """Shuffled full batches (a short last batch is dropped), two batches
+    prefetched by `num_workers` threads."""
+
+    PREFETCH = 2
+
+    def __init__(self, dataset, batch_size: int = 2, num_workers: int = 4, seed: int = 0):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.num_workers = max(1, num_workers)
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return len(self.dataset) // self.batch_size
+
+    def __iter__(self):
+        order = np.arange(len(self.dataset))
+        self.rng.shuffle(order)
+        batches = [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        batches = [b for b in batches if len(b) == self.batch_size]
+
+        q: queue.Queue = queue.Queue(maxsize=self.PREFETCH)
+        stop = threading.Event()
+        failure: list[BaseException] = []
+
+        def produce():
+            try:
+                with ThreadPoolExecutor(self.num_workers) as pool:
+                    for idxs in batches:
+                        if stop.is_set():
+                            return
+                        q.put(collate(list(pool.map(self.dataset.__getitem__, idxs))))
+            except BaseException as exc:  # handed to the consumer below
+                failure.append(exc)
+            q.put(None)
+
+        worker = threading.Thread(target=produce, daemon=True)
+        worker.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    if failure:
+                        raise failure[0]
+                    return
+                yield item
+        finally:
+            stop.set()
+            while worker.is_alive():  # unblock a producer waiting on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    worker.join(timeout=0.1)

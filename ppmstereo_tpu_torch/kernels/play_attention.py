@@ -5,17 +5,27 @@ non-causal, custom softmax scale, bf16 inputs, f32 softmax:
 
     O = softmax(scale * Q K^T) V,   q (B, Lq, D), k/v (B, Lk, D) -> (B, Lq, D)
 
-Two versions of the same function:
-  * `play_attention_plain`: plain PyTorch, chunked over query rows, f32
-    logits and softmax, probabilities rounded to the value dtype before the
-    f32-accumulated product (as the JAX package's `_play_attention_xla`
-    and its Pallas kernel do). The wrapper uses it for CPU tensors only;
-    `chip_smoke.py` holds the CUDA kernel against it on the card.
-  * the CUDA kernel `csrc/play_attention.cu` (replaces the Pallas
-    `_flash_kernel`), built by `kernels/_build.py` and bound with ctypes.
+and its gradients. Each kernel has a plain PyTorch version beside it, which
+the wrappers use for CPU tensors only and `chip_smoke.py` holds the kernel
+against on the card:
 
-`play_attention` launches the kernel for CUDA tensors or raises; it never
-falls back to the plain version on a card.
+  kernel (csrc/)                          replaces (Pallas)               plain version
+  play_attention.cu, forward              `_flash_kernel`                 `play_attention_plain`
+  play_attention.cu, forward + residual   `_flash_kernel(save_residuals)` `play_attention_fwd_res_plain`
+  play_attention_bwd.cu, dq               `_flash_bwd_dq_kernel`          `play_attention_bwd_plain`
+  play_attention_bwd.cu, dk and dv        `_flash_bwd_dkv_kernel`         `play_attention_bwd_plain`
+
+The plain versions are chunked over query rows with f32 logits, as the JAX
+package's `_play_attention_xla` and `_attention_bwd_xla` are. The kernels
+are built by `kernels/_build.py` and bound with ctypes.
+
+`play_attention` is the entry point. Without autograd (inference) it runs
+the plain forward on the CPU or launches the forward kernel. When an input
+requires a gradient it goes through `PlayAttention`, a
+`torch.autograd.Function`: on a card the forward-with-residual kernel and
+the two backward kernels, on the CPU the plain forward and
+`play_attention_bwd_plain`. On a card every wrapper launches its kernel or
+raises; none falls back to a plain version.
 """
 
 from __future__ import annotations
@@ -50,17 +60,97 @@ def play_attention_plain(q, k, v, scale: float, q_chunk: int = 1024):
     return out
 
 
-def _kernel():
-    built = _build.build("play_attention")
-    fn = built.lib.play_attention_fwd
+def play_attention_fwd_res_plain(q, k, v, scale: float, q_chunk: int = 1024):
+    """Reference version of the forward with residual: (o, lse), o as
+    `play_attention_plain` gives it and lse (B, Lq) f32 each row's base-2
+    log-sum-exp of scale * log2(e) * q.k."""
+    b, lq, _ = q.shape
+    lse = torch.empty(b, lq, dtype=torch.float32, device=q.device)
+    for bi in range(b):
+        kf = k[bi].float()
+        for s in range(0, lq, q_chunk):
+            e = min(s + q_chunk, lq)
+            logits = torch.matmul(q[bi, s:e].float(), kf.t()) * (scale * LOG2E)
+            lse[bi, s:e] = torch.logsumexp(logits * math.log(2.0), dim=-1) * LOG2E
+    return play_attention_plain(q, k, v, scale, q_chunk), lse
+
+
+def play_attention_bwd_plain(q, k, v, do, scale: float, q_chunk: int = 1024):
+    """Reference backward, the counterpart of the JAX package's
+    `_attention_bwd_xla`: recompute P = softmax(scale q k^T) in f32, chunked
+    over query rows (never more than q_chunk x Lk logits at once), then
+
+        dV = P^T dO,  dP = dO V^T,  dS = P o (dP - rowsum(dP o P)),
+        dQ = scale dS K,  dK = scale dS^T Q
+
+    in f32. Returns (dq, dk, dv) in the dtypes of q, k and v."""
+    b, lq, _ = q.shape
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    for bi in range(b):
+        kf, vf = k[bi].float(), v[bi].float()
+        dk_acc = torch.zeros_like(kf)
+        dv_acc = torch.zeros_like(vf)
+        for s in range(0, lq, q_chunk):
+            e = min(s + q_chunk, lq)
+            qf, gf = q[bi, s:e].float(), do[bi, s:e].float()
+            p = torch.softmax(torch.matmul(qf, kf.t()) * scale, dim=-1)
+            dv_acc += torch.matmul(p.t(), gf)
+            dp = torch.matmul(gf, vf.t())
+            ds = p * (dp - (dp * p).sum(dim=-1, keepdim=True))
+            dq[bi, s:e] = (scale * torch.matmul(ds, kf)).to(q.dtype)
+            dk_acc += scale * torch.matmul(ds.t(), qf)
+        dk[bi] = dk_acc.to(k.dtype)
+        dv[bi] = dv_acc.to(v.dtype)
+    return dq, dk, dv
+
+
+_ARGTYPES = {
+    # q, k, v, o, B, Lq, Lk, scale_log2, stream
+    "play_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, lse, B, Lq, Lk, scale_log2, stream
+    "play_attention_fwd_res": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, dout, lse, di, dq, B, Lq, Lk, scale_log2, scale, stream
+    "play_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+    # q, k, v, dout, lse, di, dk, dv, B, Lq, Lk, scale_log2, scale, stream
+    "play_attention_bwd_dkv": [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3
+    + [ctypes.c_float] * 2 + [ctypes.c_void_p],
+}
+
+
+def _kernel(library: str, name: str):
+    fn = getattr(_build.build(library).lib, name)
     if fn.argtypes is None:
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_void_p,
-        ]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
     return fn
+
+
+def _launch(library: str, name: str, device: torch.device, *args) -> None:
+    """Launch `name` of `csrc/<library>.cu` on the current stream of
+    `device`; raise if the launch was refused."""
+    fn = _kernel(library, name)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = fn(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+def _check_cuda_tensor(name: str, x: torch.Tensor, device: torch.device,
+                       dtype: torch.dtype, shape: tuple) -> None:
+    if x.device != device:
+        raise ValueError(f"play_attention: {name} is on {x.device}, expected {device}")
+    if x.dtype != dtype:
+        raise ValueError(f"play_attention: {name} is {x.dtype}, the kernel takes {dtype}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"play_attention: {name} has shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"play_attention: {name} must be contiguous and 16-byte aligned")
 
 
 def _check_cuda_inputs(q, k, v):
@@ -90,24 +180,115 @@ def _check_cuda_inputs(q, k, v):
         raise ValueError(f"play_attention: unsupported sizes B={b} Lq={lq} Lk={lk}")
 
 
+def _on_cpu(*xs) -> bool:
+    return all(x.device.type == "cpu" for x in xs)
+
+
+def play_attention_fwd_res(q, k, v, scale: float):
+    """Kernel 2: the forward kernel with its residual, on CUDA tensors.
+    Returns (o, lse), lse (B, Lq) f32."""
+    _check_cuda_inputs(q, k, v)
+    b, lq, _ = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(b, lq, dtype=torch.float32, device=q.device)
+    _launch("play_attention", "play_attention_fwd_res", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), b, lq, k.shape[1], scale * LOG2E)
+    play_attention_fwd_res.launches += 1
+    return out, lse
+
+
+def _check_bwd_inputs(q, k, v, do, lse, di):
+    _check_cuda_inputs(q, k, v)
+    _check_cuda_tensor("dout", do, q.device, torch.bfloat16, tuple(q.shape))
+    for name, x in (("lse", lse), ("di", di)):
+        _check_cuda_tensor(name, x, q.device, torch.float32, tuple(q.shape[:2]))
+
+
+def play_attention_bwd_dq(q, k, v, do, lse, di, scale: float):
+    """Kernel 3: dq on CUDA tensors, from the forward's lse and
+    di = rowsum(dO o O), both (B, Lq) f32."""
+    _check_bwd_inputs(q, k, v, do, lse, di)
+    b, lq, _ = q.shape
+    dq = torch.empty_like(q)
+    _launch("play_attention_bwd", "play_attention_bwd_dq", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dq.data_ptr(),
+            b, lq, k.shape[1], scale * LOG2E, scale)
+    play_attention_bwd_dq.launches += 1
+    return dq
+
+
+def play_attention_bwd_dkv(q, k, v, do, lse, di, scale: float):
+    """Kernel 4: (dk, dv) on CUDA tensors; arguments as for dq."""
+    _check_bwd_inputs(q, k, v, do, lse, di)
+    b, lq, _ = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("play_attention_bwd", "play_attention_bwd_dkv", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b, lq, k.shape[1], scale * LOG2E, scale)
+    play_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+def play_attention_bwd(q, k, v, o, lse, do, scale: float):
+    """(dq, dk, dv) on CUDA tensors: di = rowsum(dO o O) in f32 (a torch op,
+    as the JAX package computes it in XLA), then kernels 3 and 4."""
+    di = (do.float() * o.float()).sum(dim=-1)
+    dq = play_attention_bwd_dq(q, k, v, do, lse, di, scale)
+    dk, dv = play_attention_bwd_dkv(q, k, v, do, lse, di, scale)
+    return dq, dk, dv
+
+
+for _wrapper in (play_attention_fwd_res, play_attention_bwd_dq, play_attention_bwd_dkv):
+    _wrapper.launches = 0  # launches of the wrapper's kernel in this process
+
+
+class PlayAttention(torch.autograd.Function):
+    """The play attention with its gradient: on a card the forward-with-
+    residual kernel and the dq and dk/dv kernels, on the CPU the plain
+    forward and `play_attention_bwd_plain` (which recomputes P)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float):
+        ctx.scale = scale
+        if _on_cpu(q, k, v):
+            ctx.save_for_backward(q, k, v)
+            return play_attention_plain(q, k, v, scale)
+        out, lse = play_attention_fwd_res(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        do = do.contiguous()
+        saved = ctx.saved_tensors  # unpacked once: checkpointing allows no more
+        if len(saved) == 3:
+            dq, dk, dv = play_attention_bwd_plain(*saved, do, ctx.scale)
+        else:
+            q, k, v, out, lse = saved
+            dq, dk, dv = play_attention_bwd(q, k, v, out, lse, do, ctx.scale)
+        return dq, dk, dv, None
+
+
 def play_attention(q, k, v, scale: float):
-    """softmax(scale * q k^T) v. CPU tensors take the plain version; CUDA
-    tensors launch the hand-written kernel (bf16, D = 128) or raise."""
-    if q.device.type == k.device.type == v.device.type == "cpu":
+    """softmax(scale * q k^T) v. When an input requires a gradient (and
+    autograd is on) the call goes through `PlayAttention`. Otherwise CPU
+    tensors take the plain version and CUDA tensors launch the forward
+    kernel, kernel 1 (bf16, D = 128), or raise; `play_attention.launches`
+    counts kernel 1."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return PlayAttention.apply(q, k, v, scale)
+    if _on_cpu(q, k, v):
         return play_attention_plain(q, k, v, scale)
     _check_cuda_inputs(q, k, v)
     b, lq, _ = q.shape
-    lk = k.shape[1]
-    fn = _kernel()
     out = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = fn(
+    _launch("play_attention", "play_attention_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b, lq, lk, scale * LOG2E, stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"play_attention kernel launch failed: CUDA error {err}")
+            b, lq, k.shape[1], scale * LOG2E)
     play_attention.launches += 1
     return out
 
@@ -116,10 +297,19 @@ play_attention.launches = 0
 
 
 def play_attention_cost(b: int, lq: int, lk: int, d: int = HEAD_DIM) -> tuple[float, float]:
-    """(FLOP, bytes) one call needs: two products of 2*Lq*Lk*D each per row,
-    and bf16 q, k, v read once and o written once."""
+    """(FLOP, bytes) one forward needs: two products of 2*Lq*Lk*D each per
+    row, and bf16 q, k, v read once and o written once."""
     flops = 4.0 * b * lq * lk * d
     nbytes = 2.0 * b * d * (2 * lq + 2 * lk)
+    return flops, nbytes
+
+
+def play_attention_bwd_cost(b: int, lq: int, lk: int, d: int = HEAD_DIM) -> tuple[float, float]:
+    """(FLOP, bytes) the backward needs: five products of 2*Lq*Lk*D each
+    (S, dP, dV, dQ, dK) per row; bf16 q, dO, dq and k, v, dk, dv and f32 lse
+    and Di each moved once."""
+    flops = 10.0 * b * lq * lk * d
+    nbytes = 2.0 * b * d * (3 * lq + 4 * lk) + 8.0 * b * lq
     return flops, nbytes
 
 

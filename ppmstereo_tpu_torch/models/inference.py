@@ -47,8 +47,10 @@ class SlidingWindowPredictor:
         self.kernel_size = kernel_size
         self.device = torch.device(device)
 
+    @torch.no_grad()
     def _run_window(self, left: torch.Tensor, right: torch.Tensor):
-        """left/right (T, H, W, 3) -> tuple of (T, H, W, 1) outputs."""
+        """left/right (T, H, W, 3) -> tuple of (T, H, W, 1) outputs, without
+        autograd."""
         _, h, w, _ = left.shape
         padder = InputPadder(h, w)
         lp, rp = padder.pad(left, right)

@@ -1,11 +1,19 @@
-"""PPMStereo in test mode: pick-and-play memory video stereo.
+"""PPMStereo: pick-and-play memory video stereo, in test and train mode.
 
 Counterpart of ppmstereo_tpu/models/ppm_stereo.py (`PPMUpdateLoop`,
-`PPMStereo`) for cold inference: a cascaded 1/16 -> 1/8 -> 1/4 refinement
+`PPMStereo`) for cold windows: a cascaded 1/16 -> 1/8 -> 1/4 refinement
 with an SST attention block, a quality-scored top-k frame memory ("pick")
 and attention over the picked frames ("play"). The refinement loop is a
-Python loop. The play attention runs through the hand-written CUDA kernel
-on a card (`kernels/play_attention.py`).
+Python loop. The play attention runs through the hand-written CUDA kernels
+on a card (`kernels/play_attention.py`), its backward included.
+
+Test mode returns the final disparity and uncertainty. Train mode returns
+every iteration's full-resolution prediction and uncertainty, and runs each
+iteration under `torch.utils.checkpoint` (the counterpart of the JAX
+package's `nn.remat`): its activations are recomputed in the backward pass.
+The recomputation reuses the top-k frame picks of the forward pass, so the
+gradient belongs to the picks the loss saw even where a near-tie of frame
+scores could round the other way on a second evaluation.
 
 Tensors are (B, T, H, W, C) at the public boundary; images are in [0, 255].
 The bf16 policy follows the JAX modules' `dtype=`: each layer computes in
@@ -19,6 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ppmstereo_tpu_torch.kernels.play_attention import play_attention, play_scale
 from ppmstereo_tpu_torch.nn.attention import temporal_positional_encoding
@@ -49,13 +58,18 @@ CORR_RADIUS = 4
 
 
 class PPMUpdateLoop(nn.Module):
-    """One cascade stage: `iters` pick-and-play iterations."""
+    """One cascade stage: `iters` pick-and-play iterations. In train mode
+    (`collect_preds`) each iteration also yields its prediction at full
+    resolution: the stage's grid is 1 / (4 * interp_scale) of the image."""
 
     def __init__(self, iters: int, dtype: torch.dtype, with_attention: bool = False,
-                 with_init_hidden: bool = False):
+                 with_init_hidden: bool = False, interp_scale: int = 1,
+                 collect_preds: bool = False):
         super().__init__()
         self.iters = iters
         self.dtype = dtype
+        self.interp_scale = interp_scale
+        self.collect_preds = collect_preds
         self.update_block = SequenceUpdateBlock3D(with_attention, with_init_hidden, dtype)
 
     def _play(self, query_pe, key_aug, value, idx, score_norm):
@@ -79,64 +93,134 @@ class PPMUpdateLoop(nn.Module):
                              v_tok.contiguous(), scale)
         return out.reshape(b, t, h, w, c).to(self.dtype)
 
-    def forward(self, pyramid, coords0, query_pe, key_aug, sim_score,
-                flow, net, inp, motion_hidden, picks: list | None = None):
-        """Returns (flow, flow_up, net, motion_hidden, last uncertainty).
+    def _iteration(self, stage, flow, net, motion_hidden, strive, picked: list,
+                   picks: list | None):
+        """One pick-and-play iteration. `stage` holds the loop-invariant
+        inputs (pyramid, coords0, query_pe, key_aug, sim_score, inp).
 
-        picks: when a list is given, each iteration's top-k frame indices
-        are appended to it (the tests compare them with the JAX model's)."""
+        picked (train mode): the iteration's top-k indices; empty on the
+        first evaluation, which fills it, and reused by the recomputation.
+        Returns (flow, net, motion_hidden, strive, uncertainty, mask), mask
+        None in test mode."""
+        pyramid, coords0, query_pe, key_aug, sim_score, inp = stage
         dtype = self.dtype
         ub = self.update_block
         b, t, h, w, _ = flow.shape
-        k = min(TOP_K, t)  # clips shorter than top_k pick every frame
-        strive = torch.ones(b, t, t, device=flow.device)
-        uncertainty = None
-        for _ in range(self.iters):
-            # 1. pyramid lookup around the current disparity (f32)
-            coords_x = coords0 + flow[..., 0].reshape(b * t, h, w)
-            corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS)
-            corrs = corrs.reshape(b, t, h, w, -1).to(dtype)
-            # 2. motion features, recurrent state, value
-            motion, motion_hidden, value = ub.get_motion_and_value(
-                flow.to(dtype), corrs, motion_hidden)
-            # 3. quality scores
-            uncertainty = ub.get_uncertainty(torch.cat([net, value], dim=-1))
-            penalty = torch.exp(-strive / (strive.sum(-1, keepdim=True) + t))
-            frame_conf = uncertainty.float().mean(dim=(2, 3, 4))  # (B, T)
-            frame_score = penalty * sim_score + frame_conf[:, None, :]
-            # 4. pick the top-k frames per target frame, count their use
-            sel_score, idx = torch.topk(frame_score, k, dim=-1)
+        # 1. pyramid lookup around the current disparity (f32)
+        coords_x = coords0 + flow[..., 0].reshape(b * t, h, w)
+        corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS)
+        corrs = corrs.reshape(b, t, h, w, -1).to(dtype)
+        # 2. motion features, recurrent state, value
+        motion, motion_hidden, value = ub.get_motion_and_value(
+            flow.to(dtype), corrs, motion_hidden)
+        # 3. quality scores
+        uncertainty = ub.get_uncertainty(torch.cat([net, value], dim=-1))
+        penalty = torch.exp(-strive / (strive.sum(-1, keepdim=True) + t))
+        frame_conf = uncertainty.float().mean(dim=(2, 3, 4))  # (B, T)
+        frame_score = penalty * sim_score + frame_conf[:, None, :]
+        # 4. pick the top-k frames per target frame (clips shorter than
+        # top_k pick every frame), count their use. A train-mode iteration
+        # is recomputed in the backward pass, which must run the same ops on
+        # the same picks: both evaluations gather the selected scores (topk's
+        # values and gradient) at the indices the first one chose
+        if not picked:
+            picked.append(torch.topk(frame_score.detach(), min(TOP_K, t), dim=-1).indices)
             if picks is not None:
-                picks.append(idx)
-            strive = strive + F.one_hot(idx, t).sum(dim=-2).float()
-            score_norm = sel_score / sel_score.mean(dim=(0, 2), keepdim=True)
-            # 5. play: attend over the picked memory
-            hidden_states = self._play(query_pe, key_aug, value, idx, score_norm)
-            motion_global = motion + ub.aggregator.beta.to(dtype) * hidden_states
-            # 6. GRU update and flow head
-            net, delta = ub(net, inp, motion, motion_global)
-            flow = flow + delta.float()
-        flow_up = convex_upsample_3d(flow, ub.get_mask(net), rate=4)
-        return flow, flow_up, net, motion_hidden, uncertainty
+                picks.append(picked[0])
+        idx = picked[0]
+        sel_score = frame_score.gather(-1, idx)
+        strive = strive + F.one_hot(idx, t).sum(dim=-2).float()
+        score_norm = sel_score / sel_score.mean(dim=(0, 2), keepdim=True)
+        # 5. play: attend over the picked memory
+        hidden_states = self._play(query_pe, key_aug, value, idx, score_norm)
+        motion_global = motion + ub.aggregator.beta.to(dtype) * hidden_states
+        # 6. GRU update and flow head (and, in train mode, the convex mask
+        # of the new state)
+        if self.collect_preds:
+            net, delta, mask = ub(net, inp, motion, motion_global, compute_mask=True)
+        else:
+            (net, delta), mask = ub(net, inp, motion, motion_global), None
+        flow = flow + delta.float()
+        return flow, net, motion_hidden, strive, uncertainty, mask
+
+    def _full_res(self, flow, mask, uncertainty):
+        """Train-mode outputs of one iteration at full resolution: the
+        convex 3-D upsample (x4) of the disparity, then a bilinear
+        align-corners resize by interp_scale (x`interp_scale` values), and
+        the uncertainty resized by 4 * interp_scale (align_corners=False)."""
+        s = self.interp_scale
+        flow_up = convex_upsample_3d(flow, mask, rate=4)
+        h, w = uncertainty.shape[2], uncertainty.shape[3]
+        unc_up = interp_ac_false(uncertainty.float(), (4 * s * h, 4 * s * w))
+        if s > 1:
+            oh, ow = s * flow_up.shape[2], s * flow_up.shape[3]
+            flow_up = s * interp_bilinear(flow_up, (oh, ow))
+        return flow_up[..., :1], unc_up
+
+    def forward(self, pyramid, coords0, query_pe, key_aug, sim_score,
+                flow, net, inp, motion_hidden, picks: list | None = None):
+        """Returns (flow, flow_up, net, motion_hidden, last uncertainty,
+        predictions, uncertainties); the last two are (iters, B, T, H, W, 1)
+        at full resolution in train mode and None in test mode.
+
+        picks: when a list is given, each iteration's top-k frame indices
+        are appended to it (the tests compare them with the JAX model's)."""
+        b, t, _, _, _ = flow.shape
+        stage = (pyramid, coords0, query_pe, key_aug, sim_score, inp)
+        strive = torch.ones(b, t, t, device=flow.device)
+        uncertainty = mask = None
+        preds, uncs = [], []
+        for _ in range(self.iters):
+            picked: list = []
+            if self.collect_preds:
+                flow, net, motion_hidden, strive, uncertainty, mask = checkpoint(
+                    self._iteration, stage, flow, net, motion_hidden, strive, picked, picks,
+                    use_reentrant=False, preserve_rng_state=False)
+                pred, unc = self._full_res(flow, mask, uncertainty)
+                preds.append(pred)
+                uncs.append(unc)
+            else:
+                flow, net, motion_hidden, strive, uncertainty, _ = self._iteration(
+                    stage, flow, net, motion_hidden, strive, picked, picks)
+        if mask is None:  # test mode reads the mask of the final state only
+            mask = self.update_block.get_mask(net)
+        flow_up = convex_upsample_3d(flow, mask, rate=4)
+        if not self.collect_preds:
+            return flow, flow_up, net, motion_hidden, uncertainty, None, None
+        return (flow, flow_up, net, motion_hidden, uncertainty,
+                torch.stack(preds), torch.stack(uncs))
 
 
 class PPMStereo(nn.Module):
-    """Full test-mode forward over (B, T, H, W, 3) [0, 255] stereo clips ->
-    (disparity (B,T,H,W,1) signed x-flow, uncertainty (B,T,H,W,1))."""
+    """PPMStereo over (B, T, H, W, 3) [0, 255] stereo clips.
 
-    def __init__(self, iters: int = 10, mixed_precision: bool = True):
+    test_mode=True:  -> (disparity (B,T,H,W,1) signed x-flow,
+                         uncertainty (B,T,H,W,1))
+    test_mode=False: -> (predictions (n,B,T,H,W,1), uncertainties
+                         (n,B,T,H,W,1)) of all n = 2 (iters // 2) + iters
+                         iterations, at full resolution (training)
+
+    num_frames sizes the SST time embedding (the training clip length).
+    Autograd is the caller's choice: inference callers run it under
+    `torch.no_grad()`."""
+
+    def __init__(self, iters: int = 10, mixed_precision: bool = True,
+                 test_mode: bool = False, num_frames: int = 5):
         super().__init__()
+        self.test_mode = test_mode
         self.dtype = dtype = torch.bfloat16 if mixed_precision else torch.float32
         self.fnet = BasicEncoder(DIM, dtype)
         self.cnet = ContextNet(DIM, dtype)
         for i in range(3):
             self.add_module(f"att_{i}", AttentionQK(DIM - HIDDEN_DIM, CONTEXT_DIM, dtype))
-        self.sst = SSTBlock(DIM, SST_DEPTH, dtype)
+        self.sst = SSTBlock(DIM, SST_DEPTH, dtype, num_frames)
         half = max(iters // 2, 1)
+        train = not test_mode
         self.update_block16 = PPMUpdateLoop(half, dtype, with_attention=True,
-                                            with_init_hidden=True)
-        self.update_block08 = PPMUpdateLoop(half, dtype)
-        self.update_block04 = PPMUpdateLoop(iters, dtype)
+                                            with_init_hidden=True, interp_scale=4,
+                                            collect_preds=train)
+        self.update_block08 = PPMUpdateLoop(half, dtype, interp_scale=2, collect_preds=train)
+        self.update_block04 = PPMUpdateLoop(iters, dtype, collect_preds=train)
 
     def compute_qk_similarity(self, query, key):
         """Cosine similarity of pooled per-frame descriptors:
@@ -179,9 +263,9 @@ class PPMStereo(nn.Module):
         inp = (feat[..., HIDDEN_DIM:] + cnet_feat[..., HIDDEN_DIM:]) / 2.0
         return torch.tanh(net), F.relu(inp)
 
-    @torch.no_grad()
     def forward(self, image1, image2, picks: list | None = None):
-        """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty).
+        """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty)
+        in test mode, (predictions, uncertainties) in train mode.
 
         picks: optional list that collects every iteration's top-k indices,
         stage by stage."""
@@ -200,24 +284,26 @@ class PPMStereo(nn.Module):
         # stage 1/16
         flow16 = torch.zeros(b, t, h4 // 4, w4 // 4, 2, device=fmap1.device)
         mh16 = self.update_block16.update_block.init_motion_hidden_state(inp16)
-        _, flow_up16, net16, mh16, _ = self.update_block16(
+        _, flow_up16, net16, mh16, _, p16, u16 = self.update_block16(
             *self._stage_inputs(0, f1_16, f2_16, inp16), flow16, net16, inp16, mh16,
             picks=picks)
         # stage 1/8
         flow8 = -(h8 / flow_up16.shape[2]) * interp_bilinear(flow_up16, (h8, w8))
         mh8 = interp_bilinear(mh16, (h8, w8))
         net8 = (net8 + interp_bilinear(net16, (h8, w8))) / 2.0
-        _, flow_up8, net8, mh8, _ = self.update_block08(
+        _, flow_up8, net8, mh8, _, p8, u8 = self.update_block08(
             *self._stage_inputs(1, f1_8, f2_8, inp8), flow8, net8, inp8, mh8,
             picks=picks)
         # stage 1/4
         flow4 = -(h4 / flow_up8.shape[2]) * interp_bilinear(flow_up8, (h4, w4))
         mh4 = interp_bilinear(mh8, (h4, w4))
         net = (net + interp_bilinear(net8, (h4, w4))) / 2.0
-        _, flow_up4, _, _, unc_last = self.update_block04(
+        _, flow_up4, _, _, unc_last, p4, u4 = self.update_block04(
             *self._stage_inputs(2, fmap1, fmap2, inp), flow4, net, inp, mh4,
             picks=picks)
 
+        if not self.test_mode:
+            return torch.cat([p16, p8, p4]), torch.cat([u16, u8, u4])
         disparity = flow_up4[..., :1]
         uncertainty = interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
         return disparity, uncertainty

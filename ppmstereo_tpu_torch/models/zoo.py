@@ -47,6 +47,6 @@ def model_zoo(model_name: str, *, params: Mapping[str, np.ndarray],
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
-    model = PPMStereo(iters, mixed_precision)
+    model = PPMStereo(iters, mixed_precision, test_mode=True)
     load_flax_params(model, params)
     return StereoVideoPredictor(model, kernel_size, dev)

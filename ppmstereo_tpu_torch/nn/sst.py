@@ -1,7 +1,7 @@
 """SST ("space-super-time") attention block at 1/16 resolution
 (counterpart of ppmstereo_tpu/nn/sst.py::SSTBlock): sinusoidal 2-D PE,
-a learned time embedding (nearest-interpolated when the clip length differs
-from NUM_FRAMES) and `depth` rounds of LoFTR self-attention, stereo
+a learned time embedding of `num_frames` frames (nearest-interpolated when
+the clip length differs) and `depth` rounds of LoFTR self-attention, stereo
 cross-attention and temporal attention over both views.
 """
 
@@ -17,9 +17,6 @@ from ppmstereo_tpu_torch.nn.attention import (
     position_encoding_sine,
 )
 
-NUM_FRAMES = 5  # frames of the learned time embedding
-
-
 def _interp_nearest_time(embed: torch.Tensor, t: int) -> torch.Tensor:
     """F.interpolate(mode='nearest') along the frame axis of (1, T0, C)."""
     t0 = embed.shape[1]
@@ -34,10 +31,10 @@ class SSTBlock(nn.Module):
     a time embedding, then per round self, cross and temporal attention."""
 
     def __init__(self, dim: int = 256, depth: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, num_frames: int = 5):
         super().__init__()
         self.depth = depth
-        self.time_embed = nn.Parameter(torch.zeros(1, NUM_FRAMES, dim))
+        self.time_embed = nn.Parameter(torch.zeros(1, num_frames, dim))
         for i in range(depth):
             self.add_module(f"time_attn_blocks_{i}", TimeAttnBlock(dim, 8, dtype))
             self.add_module(f"self_attn_blocks_{i}",

@@ -83,11 +83,16 @@ class SequenceUpdateBlock3D(nn.Module):
     def get_mask(self, net: torch.Tensor) -> torch.Tensor:
         return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)))
 
-    def forward(self, net, inp, motion_features, motion_features_global):
-        """GRU update: returns (net, delta_flow). Inference reads the mask
+    def forward(self, net, inp, motion_features, motion_features_global,
+                compute_mask: bool = False):
+        """GRU update: returns (net, delta_flow), and with `compute_mask`
+        (training, JAX's `compute_mask=collect_preds`) also the convex mask
+        of the new state: (net, delta_flow, mask). Inference reads the mask
         once after the loop (`get_mask`)."""
         x = torch.cat([inp, motion_features, motion_features_global], dim=-1)
         if self.with_attention:
             x = self.space_attn(self.time_attn(x))
         net = self.gru(net, x)
+        if compute_mask:
+            return net, self.flow_head(net), self.get_mask(net)
         return net, self.flow_head(net)

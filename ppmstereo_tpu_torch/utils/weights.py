@@ -9,6 +9,11 @@ flax path names, so `params/a/b/<leaf>` is `a.b.<leaf>` with
                      DHWIO -> OIDHW
   scale  -> weight   LayerNorm
   bias, gamma, beta, time_embed keep their names and layouts.
+
+`state_dict_to_flax` is the inverse: it writes the port's parameters (a
+trained port model, or its gradients) in the flat flax layout, which
+`export_npz` saves in the anchor's npz format for either package's
+`model_zoo`.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 import torch.nn as nn
 
 _KERNEL_PERM = {2: (1, 0), 4: (3, 2, 0, 1), 5: (4, 3, 0, 1, 2)}
+_KERNEL_INV = {n: tuple(np.argsort(perm)) for n, perm in _KERNEL_PERM.items()}
 
 
 def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
@@ -53,6 +59,32 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor
             leaf = "weight"
         state[".".join(parts[:-1] + [leaf])] = torch.from_numpy(np.array(arr, order="C"))
     return state
+
+
+def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    """The port's state_dict (or any mapping of its parameter names to
+    tensors of the parameters' shapes, such as their gradients) -> flat flax
+    parameters {"params/a/b/leaf": f32 array}. A 1-D `weight` is a LayerNorm
+    scale; every other `weight` is a Dense or Conv kernel."""
+    flat = {}
+    for name, tensor in state.items():
+        *parents, leaf = name.split(".")
+        arr = tensor.detach().float().cpu().numpy()
+        if leaf == "weight" and arr.ndim == 1:
+            leaf = "scale"
+        elif leaf == "weight":
+            if arr.ndim not in _KERNEL_INV:
+                raise ValueError(f"{name}: unexpected weight rank {arr.ndim}")
+            arr = arr.transpose(_KERNEL_INV[arr.ndim])
+            leaf = "kernel"
+        flat["/".join(["params", *parents, leaf])] = np.ascontiguousarray(arr)
+    return flat
+
+
+def export_npz(model: nn.Module, path: str | Path) -> None:
+    """Save the model's parameters as a flat flax npz (f32), the format of
+    checkpoints/anchor_r5.npz that `load_npz` and both packages read."""
+    np.savez(path, **state_dict_to_flax(model.state_dict()))
 
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:

@@ -1,0 +1,144 @@
+"""The port's training data against the JAX package's: the synthetic clip,
+the augmentor (same seed, same input) and the loader.
+
+The JAX package renders and augments with OpenCV, the port in numpy. The
+synthetic clip's blur is bit-exact. OpenCV's fixed-point bilinear resize
+and its vectorised HSV -> RGB round differently in places
+(`ppmstereo_tpu_torch/data/augmentor.py`), so augmented images are held to
+within one level (1 LSB of uint8) on at least 99.5 % of the pixels;
+disparity to 1e-3 px. A level of difference inside the jitter can grow to 3
+(contrast and saturation factors up to 1.4 each, then truncation), so no
+pixel may differ by more than 4.
+Everything else (random draws, crops, jitter arithmetic) is the same, so a
+different draw order or crop would move whole images by many levels.
+"""
+
+import numpy as np
+import pytest
+
+from ppmstereo_tpu.data import augmentor as jaug
+from ppmstereo_tpu.data import datasets as jds
+from ppmstereo_tpu.data import loader as jloader
+from ppmstereo_tpu_torch.data import augmentor as taug
+from ppmstereo_tpu_torch.data import datasets as tds
+from ppmstereo_tpu_torch.data import loader as tloader
+
+AUG = {"crop_size": (64, 96), "min_scale": -0.2, "max_scale": 0.4,
+       "saturation_range": (0.0, 1.4)}
+JAX_AUG = dict(AUG, yjitter=True)  # the JAX training mixture's setting
+
+
+def _assert_images_close(got, want):
+    assert got.shape == want.shape
+    diff = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    assert diff.max() <= 4.0, diff.max()
+    assert (diff <= 1.0).mean() >= 0.995, (diff <= 1.0).mean()
+
+
+def _assert_sample_close(got, want):
+    assert set(got) == set(want)
+    _assert_images_close(got["img"], want["img"])
+    np.testing.assert_allclose(got["disp"], want["disp"], rtol=0, atol=1e-3)
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+
+
+@pytest.mark.parametrize("seed,t,h,w", [(0, 3, 40, 72), (5, 2, 96, 160)])
+def test_synthetic_clip_matches_jax(seed, t, h, w):
+    got = tds.SyntheticStereoDataset(num_seqs=1, sample_len=t, height=h, width=w,
+                                     seed=seed)._load_sample(0)
+    want = jds.SyntheticStereoDataset(num_seqs=1, sample_len=t, height=h, width=w,
+                                      seed=seed)._load_sample(0)
+    assert got["img"].dtype == np.uint8
+    np.testing.assert_array_equal(got["img"], want["img"])
+    np.testing.assert_array_equal(got["disp"], want["disp"])
+    np.testing.assert_array_equal(got["valid"], want["valid"])
+
+
+@pytest.mark.parametrize("fx,fy", [(1.37, 0.81), (0.6, 1.9), (1.05, 1.05), (2.0, 2.0)])
+def test_resize_linear_matches_cv2(rng, fx, fy):
+    cv2 = pytest.importorskip("cv2")
+    img = rng.integers(0, 256, (67, 93, 3)).astype(np.uint8)
+    want = cv2.resize(img, None, fx=fx, fy=fy, interpolation=cv2.INTER_LINEAR)
+    got = taug.resize_linear(img, fx, fy)
+    assert got.dtype == np.uint8
+    _assert_images_close(got, want)
+    flow = rng.standard_normal((67, 93, 2)).astype(np.float32)
+    want = cv2.resize(flow, None, fx=fx, fy=fy, interpolation=cv2.INTER_LINEAR)
+    np.testing.assert_allclose(taug.resize_linear(flow, fx, fy), want, rtol=0, atol=1e-5)
+
+
+def test_hsv_round_trip_matches_cv2():
+    """Every 3rd level of each channel, as an image of 86 rows (OpenCV takes
+    another code path for images one pixel wide)."""
+    cv2 = pytest.importorskip("cv2")
+    levels = np.arange(0, 256, 3)
+    rgb = np.stack(np.meshgrid(levels, levels, levels), -1).reshape(86, -1, 3).astype(np.uint8)
+    hsv = cv2.cvtColor(rgb, cv2.COLOR_RGB2HSV)
+    np.testing.assert_array_equal(taug.rgb_to_hsv(rgb), hsv)
+    hsv[..., 0] = (hsv[..., 0].astype(np.int32) + 37) % 180
+    got, want = taug.hsv_to_rgb(hsv), cv2.cvtColor(hsv, cv2.COLOR_HSV2RGB)
+    assert np.abs(got.astype(int) - want).max() <= 1
+    assert (got == want).mean() >= 0.98
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_augmentor_matches_jax(seed):
+    clip = jds.SyntheticStereoDataset(num_seqs=1, sample_len=3, height=96, width=160,
+                                      seed=seed)._load_sample(0)
+    got_img, got_disp = taug.SequenceDispFlowAugmentor(seed=seed, **AUG)(clip["img"], clip["disp"])
+    want_img, want_disp = jaug.SequenceDispFlowAugmentor(seed=seed, **JAX_AUG)(clip["img"], clip["disp"])
+    assert got_img.shape == (3, 2, 64, 96, 3)
+    _assert_images_close(got_img, want_img)
+    np.testing.assert_allclose(got_disp, want_disp, rtol=0, atol=1e-3)
+
+
+def test_loader_matches_jax():
+    """Two epochs of the shuffled loader over an augmented synthetic set;
+    one worker thread, so the augmentor's draws happen in one order."""
+    kw = dict(num_seqs=3, sample_len=2, height=96, width=160, seed=4)
+    tl = tloader.PrefetchLoader(tds.SyntheticStereoDataset(dict(AUG, seed=9), **kw) * 2,
+                                batch_size=2, num_workers=1, seed=3)
+    jl = jloader.PrefetchLoader(jds.SyntheticStereoDataset(dict(JAX_AUG, seed=9), **kw) * 2,
+                                batch_size=2, num_workers=1, seed=3)
+    assert len(tl) == len(jl) == 3
+    for _ in range(2):
+        batches = list(zip(tl, jl, strict=True))
+        assert len(batches) == 3
+        for got, want in batches:
+            assert set(got) == {"left", "right", "disparity", "valid"}
+            assert got["left"].shape == (2, 2, 64, 96, 3)
+            assert got["disparity"].shape == (2, 2, 64, 96, 1)
+            _assert_images_close(got["left"], want["left"])
+            _assert_images_close(got["right"], want["right"])
+            np.testing.assert_allclose(got["disparity"], want["disparity"], rtol=0, atol=1e-3)
+            np.testing.assert_array_equal(got["valid"], want["valid"])
+
+
+def test_dataset_sample_matches_jax():
+    kw = dict(num_seqs=2, sample_len=2, height=96, width=160, seed=7)
+    got = tds.SyntheticStereoDataset(dict(AUG, seed=1), **kw)[1]
+    want = jds.SyntheticStereoDataset(dict(JAX_AUG, seed=1), **kw)[1]
+    _assert_sample_close(got, want)
+
+
+def test_loader_raises_a_worker_failure():
+    class Broken(tds.SyntheticStereoDataset):
+        def _load_sample(self, sample):
+            raise OSError("unreadable frame")
+
+    loader = tloader.PrefetchLoader(Broken(num_seqs=2), batch_size=1, num_workers=1)
+    with pytest.raises(OSError, match="unreadable"):
+        next(iter(loader))
+
+
+def test_fetch_dataloader_refuses_datasets_it_cannot_read(tmp_path):
+    (tmp_path / "SceneFlow").mkdir()
+    with pytest.raises(NotImplementedError, match="no reader"):
+        tds.fetch_dataloader(sceneflow_root=str(tmp_path / "SceneFlow"),
+                             dynamic_replica_root=str(tmp_path / "none"))
+    loader = tds.fetch_dataloader(crop_size=(64, 96), sample_len=2, batch_size=1,
+                                  num_workers=1, sceneflow_root=str(tmp_path / "none"),
+                                  dynamic_replica_root=str(tmp_path / "none"))
+    batch = next(iter(loader))
+    assert batch["left"].shape == (1, 2, 64, 96, 3)
+    assert len(loader) == 64 * 50

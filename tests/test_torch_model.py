@@ -85,10 +85,11 @@ def test_forward_matches_jax_with_identical_picks(anchor, monkeypatch):
     jd, ju = np.asarray(jd), np.asarray(ju)
     jax.effects_barrier()
 
-    tm = tppm.PPMStereo(iters=4, mixed_precision=False)
+    tm = tppm.PPMStereo(iters=4, mixed_precision=False, test_mode=True)
     load_flax_params(tm, flat)
     port_picks = []
-    td, tu = tm(torch.from_numpy(left), torch.from_numpy(right), picks=port_picks)
+    with torch.no_grad():
+        td, tu = tm(torch.from_numpy(left), torch.from_numpy(right), picks=port_picks)
 
     # 2 + 2 + 4 iterations over the three stages
     assert len(jax_picks) == len(port_picks) == 8
@@ -102,7 +103,8 @@ def test_forward_matches_jax_with_identical_picks(anchor, monkeypatch):
     # the limits are tight enough to catch a wrong play step
     monkeypatch.setattr(tppm, "play_attention",
                         lambda q, k, v, scale: tpa.play_attention(q, k, v, 2 * scale))
-    fd, fu = tm(torch.from_numpy(left), torch.from_numpy(right))
+    with torch.no_grad():
+        fd, fu = tm(torch.from_numpy(left), torch.from_numpy(right))
     assert np.abs(fd.numpy() - jd).max() > DISP_TOL
     assert np.abs(fu.numpy() - ju).max() > UNC_TOL
 
@@ -119,9 +121,10 @@ def test_bf16_forward_tracks_jax(anchor):
     left, right = video[None, :, 0], video[None, :, 1]
     jm = JPPMStereo(cfg=JConfig(force_xla_attention=True), iters=4, test_mode=True)
     jd = np.asarray(jax.jit(jm.apply)(tree, jnp.asarray(left), jnp.asarray(right))[0])
-    tm = tppm.PPMStereo(iters=4)
+    tm = tppm.PPMStereo(iters=4, test_mode=True)
     load_flax_params(tm, flat)
-    td = tm(torch.from_numpy(left), torch.from_numpy(right))[0].numpy()
+    with torch.no_grad():
+        td = tm(torch.from_numpy(left), torch.from_numpy(right))[0].numpy()
     assert td.dtype == np.float32 and np.isfinite(td).all()
     assert np.abs(td - jd).mean() <= 0.05
     epe_port = np.abs(np.abs(td[0, ..., 0]) - gt).mean()

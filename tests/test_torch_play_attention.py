@@ -1,22 +1,28 @@
-"""The play attention: the port's plain version against the JAX package's
-XLA path and its Pallas kernel (interpret mode), and the CUDA kernel against
-the plain version on a card (`cuda`-marked; skips without one).
+"""The play attention: the port's plain versions (forward, forward with
+residual, backward) against the JAX package's XLA path, its autodiff and its
+Pallas kernels (interpret mode), and the CUDA kernels against the plain
+versions on a card (`cuda`-marked; skip without one).
 
 Tolerances:
   * f32 inputs, plain vs XLA / Pallas: 2e-5, as tests/test_aux.py holds the
     Pallas kernel to the XLA path (f32 sums in another order; the
     probabilities are rounded to the f32 value dtype, i.e. not at all);
+    the gradients too (measured at most 1.5e-6);
+  * the residual lse (base-2 log-sum-exp, values up to ~20): 1e-5;
   * bf16 inputs, plain vs XLA: the outputs are bf16, so one bf16 ulp
     (2^-7 relative) at the largest |output|; the f32 logits and softmax
     agree far below that.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
 from ppmstereo_tpu.kernels.play_attention import (
+    _flash_bwd,
+    _flash_fwd_res,
     _play_attention_pallas,
     _play_attention_xla,
 )
@@ -98,3 +104,94 @@ def test_kernel_matches_plain_on_card(b, lq, lk):
     assert diff.mean().item() <= 2**-8 * want.float().abs().mean().item()
     with pytest.raises(ValueError, match="bfloat16"):
         tpa.play_attention(q.float(), k.float(), v.float(), SCALE)
+
+
+def _grad_inputs(rng, b, lq, lk):
+    return _inputs(rng, b, lq, lk) + (rng.standard_normal((b, lq, 128)).astype(np.float32),)
+
+
+@pytest.mark.parametrize("b,lq,lk", [(2, 200, 512), (2, 96, 700), (1, 17, 5)])
+def test_bwd_plain_matches_jax_grad(rng, b, lq, lk):
+    """Against jax.grad of the XLA path (what the JAX package's CPU training
+    differentiates), ragged sizes included."""
+    q, k, v, g = _grad_inputs(rng, b, lq, lk)
+    want = jax.grad(
+        lambda q, k, v: jnp.sum(_play_attention_xla(q, k, v, SCALE, q_chunk=32) * g),
+        argnums=(0, 1, 2))(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    got = tpa.play_attention_bwd_plain(*map(torch.from_numpy, (q, k, v, g)), SCALE, q_chunk=64)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("lq,lk,block_q,block_k", [(200, 512, 64, 128), (128, 512, 64, 256)])
+def test_fwd_res_and_bwd_plain_match_flash_interpret(rng, lq, lk, block_q, block_k):
+    """Against the Pallas forward-with-residuals and backward kernels in
+    interpret mode (as tests/test_aux.py runs them): lse = m + log2(l)."""
+    q, k, v, g = _grad_inputs(rng, 2, lq, lk)
+    jq, jk, jv, jg = map(jnp.asarray, (q, k, v, g))
+    out, m2, l = _flash_fwd_res(jq, jk, jv, SCALE, block_q, block_k, interpret=True)
+    t_out, t_lse = tpa.play_attention_fwd_res_plain(*map(torch.from_numpy, (q, k, v)), SCALE)
+    np.testing.assert_allclose(t_out.numpy(), np.asarray(out), rtol=2e-5, atol=2e-5)
+    want_lse = np.asarray(m2)[:, :lq, 0] + np.log2(np.asarray(l)[:, :lq, 0])
+    assert t_lse.shape == (2, lq)
+    np.testing.assert_allclose(t_lse.numpy(), want_lse, rtol=0, atol=1e-5)
+    want = _flash_bwd(jq, jk, jv, out, m2, l, jg, SCALE, block_q, block_k, interpret=True)
+    got = tpa.play_attention_bwd_plain(*map(torch.from_numpy, (q, k, v, g)), SCALE)
+    for name, t, j in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=2e-5, atol=2e-5, err_msg=name)
+
+
+def test_autograd_on_cpu_uses_the_plain_versions(rng):
+    """With inputs that require a gradient, play_attention goes through the
+    autograd Function: on the CPU the plain forward and the plain backward,
+    and no kernel launch is counted."""
+    q, k, v, g = (torch.from_numpy(x) for x in _grad_inputs(rng, 2, 40, 150))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    counters = (tpa.play_attention, tpa.play_attention_fwd_res,
+                tpa.play_attention_bwd_dq, tpa.play_attention_bwd_dkv)
+    before = [fn.launches for fn in counters]
+    out = tpa.play_attention(*leaves, SCALE)
+    out.backward(g)
+    assert [fn.launches for fn in counters] == before
+    torch.testing.assert_close(out.detach(), tpa.play_attention_plain(q, k, v, SCALE),
+                               rtol=0, atol=0)
+    for leaf, want in zip(leaves, tpa.play_attention_bwd_plain(q, k, v, g, SCALE)):
+        torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0)
+    with torch.no_grad():  # inference takes the forward without residual
+        assert not tpa.play_attention(*leaves, SCALE).requires_grad
+
+
+def test_bwd_cost_model():
+    flops, _ = tpa.play_attention_bwd_cost(10, 10240, 51200)
+    assert flops / 989e12 * 1e3 == pytest.approx(6.8, rel=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk", [(2, 640, 3200), (3, 1000, 4999), (1, 17, 5)])
+def test_training_kernels_match_plain_on_card(b, lq, lk):
+    """Kernels 2-4 against the plain versions at the limits chip_smoke.py
+    states: kernel 2's o equals kernel 1's bit for bit, its lse within
+    2^-12; dq, dk, dv within 1.5 bf16 ulps at the largest |value| and
+    2^-7.5 of the mean |value| on average."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+               for n in (lq, lk, lk))
+    do = torch.randn(b, lq, 128, generator=gen, device="cuda").bfloat16()
+    launches = [fn.launches for fn in (tpa.play_attention_fwd_res, tpa.play_attention_bwd_dq,
+                                       tpa.play_attention_bwd_dkv)]
+    out, lse = tpa.play_attention_fwd_res(q, k, v, SCALE)
+    grads = tpa.play_attention_bwd(q, k, v, out, lse, do, SCALE)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in (tpa.play_attention_fwd_res, tpa.play_attention_bwd_dq,
+                                   tpa.play_attention_bwd_dkv)] == [n + 1 for n in launches]
+    assert torch.equal(out, tpa.play_attention(q, k, v, SCALE))
+    _, want_lse = tpa.play_attention_fwd_res_plain(q, k, v, SCALE)
+    assert (lse - want_lse).abs().max().item() <= 2**-12
+    for got, want in zip(grads, tpa.play_attention_bwd_plain(q, k, v, do, SCALE)):
+        diff = (got.float() - want.float()).abs()
+        assert diff.max().item() <= 3 * 2**-8 * want.float().abs().max().item()
+        assert diff.mean().item() <= 2**-7.5 * want.float().abs().mean().item()
+    with pytest.raises(ValueError, match="float32"):
+        tpa.play_attention_bwd_dq(q, k, v, do, lse.double(), lse, SCALE)
