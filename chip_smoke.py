@@ -7,12 +7,18 @@ Phases, each between timestamped progress lines (so a cut run shows where
 it stopped):
 
   1. device    require a CUDA card; print its name, count, power limit
-  2. build     compile every kernel library with nvcc (forward, backward)
-  3. kernels   hold each kernel against its plain PyTorch version on the card
-               at the main paths' shapes and two ragged ones, each check
-               with a max-abs and a mean-abs limit and a fault reading that
-               must fail them; time kernel, plain version and the library
+  2. build     compile every kernel library with nvcc (forward, backward,
+               lookup), one nvcc each, in parallel
+  3. kernels   hold each play kernel (1-5) against its plain PyTorch version
+               on the card at the main paths' shapes and two ragged ones,
+               each check with a max-abs and a mean-abs limit and a fault
+               reading that must fail them; kernel 5 (the ring hop) over
+               K/V split into 1, 2 and 4 hops, hop by hop and normalised
+               against kernel 1; time kernel, plain version and the library
                call (SDPA) with CUDA events
+  3b. lookup   kernel 6 (the pyramid lookup) against its plain version at
+               the three stages' pyramids and a ragged one; times beside
+               four grid_samples
   4. small parity  the whole CUDA inference path against the port's CPU path
                on a small clip in f32 (the CPU path is the one the tests
                hold against the JAX package)
@@ -27,6 +33,14 @@ it stopped):
                accuracy and the forward kernel's launch count
   7. profile   one more 10-frame window under torch.profiler: device time
                by layer and the device's busy share
+  7b. ring     the main path again in 2 processes on the one card, its play
+               steps as the ring play attention (kernel 5) over a gloo group
+               staged through the host; kernel 5's launches, the disparity
+               and EPE against the main run; each ringed play step of the
+               clip's first window against the unsharded play on the same
+               inputs; and the small clip in f32 through the ring against
+               the card's single-process output; a dropped carry as the
+               fault of both
   8. train     training: `train()` at the shipped TrainConfig() (320x512,
                5 frames, batch 2, 10 iterations, bf16) from the anchor, 4
                steps on one batch of the synthetic fallback, then 2 on fresh
@@ -76,7 +90,7 @@ TRAIN_FIXED_STEPS, TRAIN_FRESH_STEPS = 4, 2
 TRAIN_LAUNCHES_PER_STEP = {"play_attention_fwd_res": 2 * LAUNCHES_PER_WINDOW,
                            "play_attention_bwd_dq": LAUNCHES_PER_WINDOW,
                            "play_attention_bwd_dkv": LAUNCHES_PER_WINDOW,
-                           "play_attention_fwd": 0}
+                           "play_attention_fwd": 0, "corr_lookup": 0}
 
 # train small parity limits: loss relative, gradient (see grad_agreement)
 # and the share of parameter elements whose first update differs by more
@@ -87,8 +101,12 @@ TRAIN_LAUNCHES_PER_STEP = {"play_attention_fwd_res": 2 * LAUNCHES_PER_WINDOW,
 # limit 2.5e-3 sits 3.8x above the one and 3.3x below the other; the three
 # one-element play blends `beta` read up to 3.87e-3 (each gradient is one
 # sum over the whole field with much cancellation, and it sees the kernels'
-# bf16 roundings; the fault does not move them), limit 5.6e-3; and 2.9e-7
-# (update). tests/test_torch_train.py reads 6.7e-4 between the port's CPU
+# bf16 roundings), limit 5.6e-3; and 2.9e-7 (update). A wrong dk (or dq)
+# cannot move the blends: on the CPU it changes none of their gradients at
+# f32 resolution (q and k come from the context features, not from the
+# iterations' state the blends feed). A wrong dv does: doubled, it moves
+# them by 7.0e-3, 7.1e-2 and 1.0e-2 on the CPU, so the blends' limit is held
+# against the card's kernels with dv doubled. tests/test_torch_train.py reads 6.7e-4 between the port's CPU
 # path and JAX by the same per-tensor norm ratio.
 TRAIN_LOSS_TOL = 1e-4
 TRAIN_GRAD_TOL = 2.5e-3
@@ -151,7 +169,7 @@ def phase_device():
     return name, count, smi
 
 
-KERNEL_LIBRARIES = ("play_attention", "play_attention_bwd")
+KERNEL_LIBRARIES = ("play_attention", "play_attention_bwd", "corr_lookup")
 
 
 def phase_build():
@@ -184,22 +202,28 @@ PLAY_SHAPES = (
 
 def _agreement(label: str, name: str, got, want, fault, max_tol: float, mean_tol: float):
     """Max and mean |got - want| within their limits, and the same reading
-    against a fault (`fault`, a wrong version of `want`) above both."""
+    against a fault (`fault`, a wrong version of `want`) above both. A
+    reading that no fault of interest can move (the first hop of a ring,
+    from the empty state, where alpha multiplies zeros) passes fault=None."""
     import torch
 
     diff = (got.float() - want.float()).abs()
     err, mean_err = diff.max().item(), diff.mean().item()
-    fdiff = (got.float() - fault.float()).abs()
-    f_err, f_mean = fdiff.max().item(), fdiff.mean().item()
     finite = bool(torch.isfinite(got).all().item())
-    log(f"  {name} {label}: max_abs_err {err:.3e} (tol {max_tol:.3e}), mean_abs_err "
-        f"{mean_err:.3e} (tol {mean_tol:.3e}); fault reads {f_err:.3e} / {f_mean:.3e}")
+    line = (f"  {name} {label}: max_abs_err {err:.3e} (tol {max_tol:.3e}), mean_abs_err "
+            f"{mean_err:.3e} (tol {mean_tol:.3e})")
+    out = dict(max_abs_err=err, tol=max_tol, mean_abs_err=mean_err, mean_tol=mean_tol)
+    if fault is not None:
+        fdiff = (got.float() - fault.float()).abs()
+        out.update(fault_max_abs_err=fdiff.max().item(), fault_mean_abs_err=fdiff.mean().item())
+        line += f"; fault reads {out['fault_max_abs_err']:.3e} / {out['fault_mean_abs_err']:.3e}"
+    log(line)
     if not finite or not err <= max_tol or not mean_err <= mean_tol:
         raise RuntimeError(f"{name} kernel disagrees with its plain version at {label}")
-    if not (f_err > max_tol and f_mean > mean_tol):
+    if fault is not None and not (out["fault_max_abs_err"] > max_tol
+                                  and out["fault_mean_abs_err"] > mean_tol):
         raise RuntimeError(f"{name} limits at {label} do not catch the fault reading")
-    return dict(max_abs_err=err, tol=max_tol, mean_abs_err=mean_err, mean_tol=mean_tol,
-                fault_max_abs_err=f_err, fault_mean_abs_err=f_mean)
+    return out
 
 
 def _bwd_plain_fault(q, k, v, do, scale):
@@ -232,7 +256,7 @@ def phase_kernels(smi: str):
 
     scale = pa.play_scale(128)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    rows = {name: [] for name in ("fwd", "fwd_res", "bwd_dq", "bwd_dkv")}
+    rows = {name: [] for name in ("fwd", "fwd_res", "bwd_dq", "bwd_dkv", "carry")}
     for label, b, lq, lk in PLAY_SHAPES:
         q = (2 * torch.randn(b, lq, 128, generator=gen, device="cuda")).bfloat16()
         k = (2 * torch.randn(b, lk, 128, generator=gen, device="cuda")).bfloat16()
@@ -288,6 +312,8 @@ def phase_kernels(smi: str):
         rows["bwd_dq"].append(dict(shape, checks={"dq": checks["dq"]}))
         rows["bwd_dkv"].append(dict(shape, checks={"dk": checks["dk"], "dv": checks["dv"]}))
 
+        rows["carry"].append(dict(shape, checks=_carry_checks(label, q, k, v, got, scale)))
+
         # times (CUDA events): kernel, plain version, library call
         big = lq * lk > 1e8
         reps, plain_reps = (3, 1) if big else (20, 5)
@@ -330,6 +356,9 @@ def phase_kernels(smi: str):
                  dkv_by)):
             rows[name][-1].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                   bound_by=by)
+        carry_times = _carry_times(label, q, k, v, scale, smi)
+        rows["carry"][-1]["checks"].update(carry_times.pop("hop_checks"))
+        rows["carry"][-1].update(carry_times)
         log(f"play {label} B={b} Lq={lq} Lk={lk} on {smi}: " + ", ".join(
             f"{key} {val:.3f} ms" for key, val in times.items())
             + f"; bounds fwd {f_bound:.3f} ({f_by}), dq {dq_bound:.3f}, dk/dv {dkv_bound:.3f} ms; "
@@ -338,6 +367,272 @@ def phase_kernels(smi: str):
         del q, k, v, do, got, got_res, lse, ref, ref_lse, fault, dq, dk, dv, rq, rk, rv, fq, fk, fv
         del qg, kg, vg, di
         torch.cuda.empty_cache()
+    return rows
+
+
+RING_WAYS = (1, 2, 4)  # kernel 5 checked over K/V split into these many hops
+
+
+def _carry_fault(q, k, v, o, m, l, scale):
+    """A wrong hop for the fault readings: alpha left out of the merge of o
+    and l (o' = o + P V, l' = l + rowsum P; m' is the sound one)."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    o2, m2, l2 = pa.play_attention_carry_plain(q, k, v, o, m, l, scale)
+    alpha = torch.exp2(m - m2)  # the sound merge took o2 = alpha o + P V
+    return o2 + (1 - alpha)[..., None] * o, m2, l2 + (1 - alpha) * l
+
+
+def _empty_state(b: int, lq: int):
+    """The ring's starting state (0, -1e30, 0) for B x Lq query rows."""
+    import torch
+
+    return (torch.zeros(b, lq, 128, device="cuda"), torch.full((b, lq), -1e30, device="cuda"),
+            torch.zeros(b, lq, device="cuda"))
+
+
+def _hop_check(at: str, q, k, v, state, scale, empty: bool):
+    """One hop of kernel 5 from `state` (o, m, l) against the plain hop on
+    the same state, each of o, m, l with a max and a mean limit; from a
+    state that is not empty the fault (alpha left out of the merge; m,
+    which alpha does not touch, read in nats) must fail them. Returns the
+    checks and the kernel's new state."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    ro, rm, rl = pa.play_attention_carry_plain(q, k, v, *state, scale)
+    wrong = None
+    if not empty:
+        wo, _, wl = _carry_fault(q, k, v, *state, scale)
+        wrong = (wo, rm * math.log(2.0), wl)
+    state = pa.play_attention_carry(q, k, v, *state, scale)  # updates the state in place
+    torch.cuda.synchronize()
+    # o (f32, unnormalised: l times a weighted mean of v): the bf16 rounding
+    # of P flips where the kernel's logits differ from the plain version's
+    # in the last bits (2^-8 of p v at most per term), so as kernel 1's
+    # limit with |o| in units of l: 2^-7 max|o| + 2^-8 max(l) max|v|, and on
+    # average 2^-8 mean|o|. l: f32 sums of f32 probabilities (ex2.approx:
+    # 2^-22 relative) in another order: 2^-16 of max l, 2^-18 of mean l on
+    # average. m: as kernel 2's lse, 2^-12 and 2^-16.
+    tols = dict(
+        o=(2**-7 * ro.abs().max().item() + 2**-8 * rl.max().item() * v.float().abs().max().item(),
+           2**-8 * ro.abs().mean().item()),
+        m=(2**-12, 2**-16),
+        l=(2**-16 * rl.max().item(), 2**-18 * rl.mean().item()))
+    checks = {name: _agreement(at, f"play_attention_carry {name}", got, want,
+                               None if wrong is None else wrong[i], *tols[name])
+              for i, (name, got, want) in enumerate((("o", state[0], ro), ("m", state[1], rm),
+                                                      ("l", state[2], rl)))}
+    return checks, state
+
+
+def _carry_checks(label: str, q, k, v, whole, scale) -> dict:
+    """Kernel 5 at one shape: K/V split into n = 1, 2, 4 chunks, n hops from
+    the empty state. Each hop's (o, m, l) against the plain hop on the same
+    incoming state; the normalised result against kernel 1 on the whole K/V
+    (`whole`), and at n = 1 bit for bit (kernel 1 and the carry mode are one
+    kernel). The fault (alpha left out of the merge) must fail every hop
+    after the first and every normalised result of n > 1 (m, which alpha
+    does not touch, is read against m in nats)."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    b, lq, _ = q.shape
+    checks = {}
+    for n in RING_WAYS:
+        o, m, l = _empty_state(b, lq)
+        fo, fm, fl = o.clone(), m.clone(), l.clone()
+        for j, (kj, vj) in enumerate(zip(k.tensor_split(n, dim=1), v.tensor_split(n, dim=1))):
+            kj, vj = kj.contiguous(), vj.contiguous()
+            fo, fm, fl = _carry_fault(q, kj, vj, fo, fm, fl, scale)
+            hop, (o, m, l) = _hop_check(f"{label} hop {j + 1} of {n}", q, kj, vj, (o, m, l),
+                                        scale, empty=j == 0)
+            checks.update({f"{name} n={n} hop {j + 1}": c for name, c in hop.items()})
+        out = (o * (1.0 / l)[..., None]).bfloat16()
+        v_max = v.float().abs().max().item()
+        o_tol = 2**-7 * whole.float().abs().max().item() + 2**-8 * v_max
+        o_mean_tol = 2**-8 * whole.float().abs().mean().item()
+        at = f"{label} {n} hops, normalised, against kernel 1"
+        if n == 1:
+            if not torch.equal(out, whole):
+                raise RuntimeError(f"kernel 5 at one hop differs from kernel 1 at {label}: "
+                                   "the carry mode changed kernel 1's arithmetic")
+            log(f"  play_attention_carry {at}: bit for bit equal")
+            checks["o n=1 normalised"] = dict(max_abs_err=0.0, tol=o_tol, mean_abs_err=0.0,
+                                              mean_tol=o_mean_tol, bit_equal_kernel_1=True)
+        else:
+            checks[f"o n={n} normalised"] = _agreement(
+                at, "play_attention_carry", out, whole, (fo / fl[..., None]).bfloat16(),
+                o_tol, o_mean_tol)
+        del o, m, l, fo, fm, fl
+    return checks
+
+
+def _carry_times(label: str, q, k, v, scale, smi: str) -> dict:
+    """Kernel 5 at the hop shape of the 2-way ring (each rank's half of the
+    query rows over its half of the bank): held against the plain hop from
+    the empty state and from the state a hop over the other half of the
+    bank left (the ring's second hop, where the fault applies); then
+    kernel, plain hop, SDPA's forward on the same q/k/v (the nearest
+    library call, not the same function: it normalises and keeps no
+    state), and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    b, lq, _ = q.shape
+    hq, hk = max(lq // 2, 1), max(k.shape[1] // 2, 1)
+    qh, kh, vh = q[:, :hq].contiguous(), k[:, :hk].contiguous(), v[:, :hk].contiguous()
+    at = f"{label}, 2-way ring hop B={b} Lq={hq} Lk={hk}"
+    checks, _ = _hop_check(f"{at}, from the empty state", qh, kh, vh, _empty_state(b, hq), scale,
+                           empty=True)
+    incoming = pa.play_attention_carry_plain(qh, k[:, hk:2 * hk].contiguous(),
+                                             v[:, hk:2 * hk].contiguous(), *_empty_state(b, hq),
+                                             scale)
+    second, _ = _hop_check(f"{at}, from the other half's state", qh, kh, vh, incoming, scale,
+                           empty=False)
+    checks = {**{f"{name} hop shape, empty state": c for name, c in checks.items()},
+              **{f"{name} hop shape, second hop": c for name, c in second.items()}}
+    o, m, l = _empty_state(b, hq)
+    state = (o.clone(), m.clone(), l.clone())
+    big = hq * hk > 2.5e7
+    reps, plain_reps = (5, 1) if big else (20, 5)
+    ms = cuda_time_ms(lambda: pa.play_attention_carry(qh, kh, vh, *state, scale), reps)
+    plain_ms = cuda_time_ms(lambda: pa.play_attention_carry_plain(qh, kh, vh, o, m, l, scale),
+                            plain_reps)
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        qh[:, None], kh[:, None], vh[:, None], scale=scale), reps)
+    flops, nbytes = pa.play_attention_carry_cost(b, hq, hk)
+    bound, by = _bound(flops, nbytes)
+    log(f"play_attention_carry {label}, 2-way ring hop B={b} Lq={hq} Lk={hk} on {smi}: "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA forward "
+        f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
+    return dict(hop_shape=dict(B=b, Lq=hq, Lk=hk), hop_checks=checks, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9)
+
+
+# (label, N, H, W1, W2): the pyramids of the three stages of a 320x512
+# window of 10 frames (level 0 is (N, H, W1, W1)), and a ragged one: W2 not a
+# power of two, odd sizes, coordinates partly outside the rows
+LOOKUP_SHAPES = (
+    ("1/4", 10, 80, 128, 128),
+    ("1/8", 10, 40, 64, 64),
+    ("1/16", 10, 20, 32, 32),
+    ("ragged", 3, 7, 45, 45),
+)
+
+
+def _device_ms(fn, name: str, reps: int) -> float:
+    """The device time of one launch of the kernels whose name holds `name`
+    over `reps` calls of fn, by torch.profiler (the CUDA-event time of a
+    short kernel also holds the host's time to issue each call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if name in e.key
+            and e.device_type == torch.autograd.DeviceType.CUDA]
+    total = sum(e.self_device_time_total for e in hits) / 1e3
+    return total / reps if hits else None
+
+
+def _lookup_fault(pyramid, coords_x, radius: int = 4):
+    """A wrong lookup for the fault reading: the fractional weights swapped."""
+    import torch
+
+    outs = []
+    for lvl, corr in enumerate(pyramid):
+        w2 = corr.shape[-1]
+        pos = (coords_x / 2.0**lvl)[..., None] + torch.arange(
+            -radius, radius + 1, device=coords_x.device, dtype=torch.float32)
+        i0 = torch.floor(pos)
+        frac = pos - i0
+        i0 = i0.long()
+
+        def tap(idx):
+            vals = torch.gather(corr, -1, idx.clamp(0, w2 - 1))
+            return torch.where((idx >= 0) & (idx < w2), vals, torch.zeros_like(vals))
+
+        outs.append(tap(i0) * frac + tap(i0 + 1) * (1.0 - frac))
+    return torch.cat(outs, dim=-1)
+
+
+def _grid_sample_lookup(pyramid, grids):
+    """The reference's route: one F.grid_sample per level (align_corners,
+    zeros padding) over each pixel's row as a 1 x W image."""
+    import torch.nn.functional as F
+
+    return [F.grid_sample(corr.reshape(-1, 1, 1, corr.shape[-1]), g, mode="bilinear",
+                          padding_mode="zeros", align_corners=True)
+            for corr, g in zip(pyramid, grids)]
+
+
+def phase_lookup(smi: str):
+    """Kernel 6 against the port's lookup (its plain version) at the three
+    stages' pyramids and a ragged one, with a fault reading (the fractional
+    weights swapped); times of kernel, plain lookup and four grid_samples."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rows = []
+    for label, n, h, w1, w2 in LOOKUP_SHAPES:
+        f1 = torch.randn(n * h, 1, w1, 64, generator=gen, device="cuda")
+        f2 = torch.randn(n * h, 1, w2, 64, generator=gen, device="cuda")
+        pyramid = [c.reshape(n, h, w1, -1).contiguous() for c in build_corr_pyramid(f1, f2, 4)]
+        # coordinates as the model makes them (pixel column minus a
+        # disparity), some past either end of the row
+        cols = torch.arange(w1, device="cuda", dtype=torch.float32)
+        coords = cols - torch.rand(n, h, w1, generator=gen, device="cuda") * 0.4 * w2
+        if label == "ragged":
+            coords = torch.rand(n, h, w1, generator=gen, device="cuda") * (w2 + 24) - 12
+        got = kl.corr_lookup_kernel(pyramid, coords)
+        want = corr_lookup(pyramid, coords)
+        fault = _lookup_fault(pyramid, coords)
+        torch.cuda.synchronize()
+        # f32: the kernel repeats the plain version's operations in its order
+        # with round-to-nearest intrinsics; limit a few f32 ulps: 2^-21 of the
+        # largest |value| and 2^-23 of the mean |value|
+        check = _agreement(label, "corr_lookup", got, want, fault,
+                           2**-21 * want.abs().max().item(), 2**-23 * want.abs().mean().item())
+        grids = []
+        for lvl, corr in enumerate(pyramid):
+            w = corr.shape[-1]
+            pos = (coords / 2.0**lvl).reshape(-1, 1, 1) + torch.arange(-4, 5, device="cuda")
+            gx = 2.0 * pos / (w - 1) - 1.0
+            grids.append(torch.stack([gx, torch.zeros_like(gx)], dim=-1))
+        lib = torch.cat([x.reshape(n, h, w1, 9) for x in _grid_sample_lookup(pyramid, grids)], -1)
+        lib_err = (lib - want).abs().max().item()
+        ms = cuda_time_ms(lambda: kl.corr_lookup_kernel(pyramid, coords), 50)
+        plain_ms = cuda_time_ms(lambda: corr_lookup(pyramid, coords), 20)
+        lib_ms = cuda_time_ms(lambda: _grid_sample_lookup(pyramid, grids), 20)
+        device_ms = _device_ms(lambda: kl.corr_lookup_kernel(pyramid, coords), "corr_lookup", 20)
+        nbytes = kl.corr_lookup_bytes(pyramid, coords)
+        bound, by = _bound(0.0, nbytes)
+        pyr_bytes = 4.0 * sum(c.numel() for c in pyramid)
+        log(f"corr_lookup {label} N={n} H={h} W1={w1} W2={w2} on {smi}: kernel {ms * 1e3:.1f} us "
+            f"({nbytes / ms / 1e6:.1f} GB/s of the {nbytes / 1e6:.2f} MB it must move; device "
+            f"time {'not measured' if device_ms is None else f'{device_ms * 1e3:.1f} us'}), plain "
+            f"{plain_ms * 1e3:.1f} us, 4 x grid_sample {lib_ms * 1e3:.1f} us (max |diff| "
+            f"{lib_err:.2e} from the plain lookup), bound {bound * 1e3:.2f} us ({by}); the whole "
+            f"pyramid is {pyr_bytes / 1e6:.1f} MB ({pyr_bytes / H100_BYTES_PER_S * 1e6:.1f} us)")
+        rows.append(dict(shape=label, N=n, H=h, W1=w1, W2=w2, checks={"out": check}, ms=ms,
+                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                         gb_per_s=nbytes / ms / 1e6, device_ms=device_ms,
+                         grid_sample_max_abs_diff=lib_err))
+        del f1, f2, pyramid, got, want, fault, grids, lib
     return rows
 
 
@@ -439,7 +734,8 @@ def phase_small_parity():
         raise RuntimeError("the CUDA path disagrees with the CPU path on the small clip")
     if not fault > tol:
         raise RuntimeError("the small-clip limit does not catch a wrong play step")
-    return err, fault
+    return dict(err=err, fault=fault, cuda=outs["cuda"], left=left.numpy(),
+                right=right.numpy())
 
 
 # train small parity: gradients are compared tensor by tensor, by the norm
@@ -471,10 +767,11 @@ def grad_agreement(got: dict, want: dict) -> dict:
     return worst
 
 
-def _one_train_step(dev: str, flat, batch: dict, wrong_dk: bool = False):
+def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
     """One train_step of a fresh f32 PPMStereo (2 iterations) from `flat`
     on `dev`: (loss, gradients, parameters after the update, optimiser),
-    the tensors on the CPU."""
+    the tensors on the CPU. `doubled` (0, 1, 2): a wrong backward, with the
+    play attention's dq, dk or dv doubled."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import play_attention as pa
@@ -491,12 +788,12 @@ def _one_train_step(dev: str, flat, batch: dict, wrong_dk: bool = False):
     hooks = [p.register_post_accumulate_grad_hook(
         lambda p, n=n: grads.__setitem__(n, p.grad.detach().float().cpu().clone()))
         for n, p in model.named_parameters() if p.requires_grad]
-    # the wrong backward doubles dk in the backward that `dev` runs: the
-    # card's kernels or the CPU's plain version
+    # the wrong backward doubles one gradient in the backward that `dev`
+    # runs: the card's kernels or the CPU's plain version
     backward = pa.play_attention_bwd_plain if dev == "cpu" else pa.play_attention_bwd
-    if wrong_dk:
-        setattr(pa, backward.__name__,
-                lambda *a: (lambda g: (g[0], 2 * g[1], g[2]))(backward(*a)))
+    if doubled is not None:
+        setattr(pa, backward.__name__, lambda *a: tuple(
+            2 * g if i == doubled else g for i, g in enumerate(backward(*a))))
     try:
         state, metrics = train_step(state, to_device(batch, torch.device(dev)))
         loss = float(metrics["loss"])
@@ -512,7 +809,8 @@ def phase_train_small_parity():
     """One f32 train step on the card against the port's CPU path (which
     tests/test_torch_train.py holds against jax.value_and_grad), from the
     anchor, on a synthetic clip of 3 frames at 64x128; and the card's
-    step with a wrong backward (dk doubled), which must fail the limits."""
+    step with a wrong backward (dk doubled), which must fail the tensor
+    limit, and with dv doubled, which must fail the blends' limit."""
     import torch
 
     from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
@@ -524,13 +822,14 @@ def phase_train_small_parity():
     batch = {"left": sample["img"][None, :, 0], "right": sample["img"][None, :, 1],
              "disparity": sample["disp"][None, :, 0], "valid": sample["valid"][None, :, 0]}
     flat = load_npz(ANCHOR)
-    runs = {run: _one_train_step(dev, flat, batch, wrong_dk=run == "fault")
-            for run, dev in (("cpu", "cpu"), ("cuda", "cuda"), ("fault", "cuda"))}
-    (l_cpu, g_cpu, p_cpu, opt), (l_cuda, g_cuda, p_cuda, _), (_, g_fault, _, _) = (
-        runs["cpu"], runs["cuda"], runs["fault"])
+    runs = {run: _one_train_step(dev, flat, batch, doubled=doubled)
+            for run, dev, doubled in (("cpu", "cpu", None), ("cuda", "cuda", None),
+                                      ("fault", "cuda", 1), ("fault_dv", "cuda", 2))}
+    (l_cpu, g_cpu, p_cpu, opt), (l_cuda, g_cuda, p_cuda, _) = runs["cpu"], runs["cuda"]
     loss_rel = abs(l_cuda - l_cpu) / abs(l_cpu)
     grad = grad_agreement(g_cuda, g_cpu)
-    fault = grad_agreement(g_fault, g_cpu)
+    fault = grad_agreement(runs["fault"][1], g_cpu)
+    fault_dv = grad_agreement(runs["fault_dv"][1], g_cpu)
     # the update of Adam's first step is +-lr wherever the gradient is not
     # tiny: count the elements whose update differs by more than lr / 2
     lr0 = onecycle_lr(0, opt.num_steps, opt.lr)
@@ -542,7 +841,9 @@ def phase_train_small_parity():
         f"{grad['tensor'][0]:.3e} ({grad['tensor'][1]}; tol {TRAIN_GRAD_TOL}), one-element "
         f"{grad['scalar'][0]:.3e} ({grad['scalar'][1]}; tol {TRAIN_SCALAR_GRAD_TOL}); the card "
         f"with a wrong backward (dk doubled) reads {fault['tensor'][0]:.3e} "
-        f"({fault['tensor'][1]}), one-element {fault['scalar'][0]:.3e}; updated parameters: "
+        f"({fault['tensor'][1]}), one-element {fault['scalar'][0]:.3e}; with dv doubled "
+        f"{fault_dv['tensor'][0]:.3e}, one-element {fault_dv['scalar'][0]:.3e} "
+        f"({fault_dv['scalar'][1]}); updated parameters: "
         f"{off_share:.2e} of {n_total} elements off by more than lr/2 = {lr0 / 2:.2e} "
         f"(tol {TRAIN_UPDATE_TOL})")
     if not (loss_rel <= TRAIN_LOSS_TOL and grad["tensor"][0] <= TRAIN_GRAD_TOL
@@ -550,13 +851,17 @@ def phase_train_small_parity():
         raise RuntimeError("the card's train step disagrees with the CPU path")
     if not fault["tensor"][0] > TRAIN_GRAD_TOL:
         raise RuntimeError("the gradient limit does not catch a wrong backward")
-    return dict(loss_rel=loss_rel, grad=grad, fault=fault, update_off=off_share)
+    if not fault_dv["scalar"][0] > TRAIN_SCALAR_GRAD_TOL:
+        raise RuntimeError("the blend limit does not catch a wrong dv")
+    return dict(loss_rel=loss_rel, grad=grad, fault=fault, fault_dv=fault_dv,
+                update_off=off_share)
 
 
 def phase_main(smi: str):
     import numpy as np
     import torch
 
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.kernels import play_attention as pa
     from ppmstereo_tpu_torch.models.zoo import model_zoo
     from ppmstereo_tpu_torch.utils.weights import load_npz
@@ -578,9 +883,10 @@ def phase_main(smi: str):
 
     pred.predictor.window_fn = timed_window
     torch.cuda.reset_peak_memory_stats()
-    pa.play_attention.launches = 0
+    pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
     out = pred({"stereo_video": video})
     launches = pa.play_attention.launches
+    lookup_launches = kl.corr_lookup_kernel.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     disp = out["disparity"]
@@ -599,10 +905,282 @@ def phase_main(smi: str):
         f"{len(window_s)} windows, seconds per window {[round(s, 3) for s in window_s]} "
         f"(after the first: mean {sum(steady) / len(steady):.3f}s), "
         f"peak memory {peak_gb:.2f} GB, play launches {launches} "
-        f"({LAUNCHES_PER_WINDOW} per window), EPE {epe:.3f} px on {smi}")
+        f"({LAUNCHES_PER_WINDOW} per window), lookup kernel launches {lookup_launches} (off the "
+        f"path: the model runs ops/corr.py::corr_lookup), EPE {epe:.3f} px on {smi}")
     pred.predictor.window_fn = window_fn
-    return dict(launches=launches, window_s=window_s, peak_gb=peak_gb, epe=epe,
-                pred=pred, video=video)
+    return dict(launches=launches, lookup_launches=lookup_launches, window_s=window_s,
+                peak_gb=peak_gb, epe=epe,
+                pred=pred, video=video, disparity=disp, gt=gt)
+
+
+# the space-sharded path: RING_RANKS processes on the one card, one gloo
+# group; every collective and the whole phase bounded by RING_TIMEOUT_S
+RING_RANKS = 2
+RING_TIMEOUT_S = 600
+# In bf16 at 320x512 the ring and the single-process run differ by up to
+# 0.93 px of disparity (mean 5.8e-3 px; an H100), as much as a dropped carry
+# moves the output (1.24 px, mean 6.9e-3): the anchor's play blends are
+# small (0.023 at 1/4), so the play step moves the disparity less than
+# bf16's own divergence through 30 iterations does, and no disparity limit
+# fits between the two. So at the main path's size the ring is held play
+# step by play step: each ringed play's output against the unsharded play
+# (kernel 1) on the same inputs, with kernel 1's limits (see
+# _ring_play_readings), over one window, and a dropped carry as the fault.
+# The whole run is also held to the single-process EPE (RING_EPE_TOL px),
+# and the disparity limit (RING_SMALL_TOL px) to the small parity's clip in
+# f32, against the card's single-process f32 output.
+RING_EPE_TOL = 0.01
+RING_SMALL_TOL = 1e-3
+
+
+def _checked_plays(readings: list):
+    """Patch `PPMUpdateLoop._play` so that each play step that rings also
+    runs unsharded (kernel 1 over this process's copy of the whole rows) on
+    the same inputs; `readings` gets each such call's max and mean
+    |ring - unsharded| and kernel 1's limits for them: 2^-7 max|out| +
+    2^-8 max|v| and 2^-8 mean|out| (bf16 outputs; see phase_kernels).
+    Returns the original method."""
+    import torch
+    import torch.distributed as dist
+
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMUpdateLoop
+
+    play = PPMUpdateLoop._play
+
+    def checked(self, query_pe, key_aug, value, idx, score_norm):
+        out = play(self, query_pe, key_aug, value, idx, score_norm)
+        group, h = self.space_group, query_pe.shape[2]
+        if group is None or h % dist.get_world_size(group):
+            return out  # this play step did not ring
+        self.space_group = None
+        try:
+            want = play(self, query_pe, key_aug, value, idx, score_norm).float()
+        finally:
+            self.space_group = group
+        rows = torch.arange(idx.shape[0], device=idx.device)[:, None, None]
+        v_max = value[rows, idx].to(torch.bfloat16).float().abs().max().item()
+        diff = (out.float() - want).abs()
+        readings.append(dict(rows=h, max_abs_err=diff.max().item(), mean_abs_err=diff.mean().item(),
+                             tol=2**-7 * want.abs().max().item() + 2**-8 * v_max,
+                             mean_tol=2**-8 * want.abs().mean().item()))
+        return out
+
+    PPMUpdateLoop._play = checked
+    return play
+
+
+def _timed_windows(pred, window_s: list):
+    """Wrap the predictor's window function to record each window's seconds."""
+    import torch
+
+    window_fn = pred.predictor.window_fn
+
+    def timed_window(left, right):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = window_fn(left, right)
+        torch.cuda.synchronize()
+        window_s.append(time.perf_counter() - t0)
+        return out
+
+    pred.predictor.window_fn = timed_window
+    return window_fn
+
+
+def _drop_carry(ra):
+    """The fault: every hop of the ring starts from the empty state, so a
+    block attends over the keys of its last hop only (a dropped carry)."""
+    carry = ra.play_attention_carry
+    ra.play_attention_carry = lambda q, k, v, o, m, l, scale: carry(
+        q, k, v, o.zero_(), m.fill_(ra.NEG_INF), l.zero_(), scale)
+    return carry
+
+
+def _ring_child(rank: int, world: int, video, fault_frames: int, small_left, small_right):
+    """One process of the ring phase: the main path's predictor with its
+    play steps ringed over a space mesh of all processes (counted); then
+    the clip's first `fault_frames` frames (a window and its tail window)
+    twice with each ringed play step held against the unsharded play on its
+    inputs, sound and with every hop's incoming state dropped (the fault);
+    then the small parity's f32 forward, sound and with the fault."""
+    from datetime import timedelta
+
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMUpdateLoop
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.parallel import ring_attention as ra
+    from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshSpec(space=world), timeout=timedelta(seconds=RING_TIMEOUT_S))
+    pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS,
+                     params=load_npz(ANCHOR), mesh=mesh)
+    window_s: list = []
+    window_fn = _timed_windows(pred, window_s)
+    torch.cuda.reset_peak_memory_stats()
+    pa.play_attention.launches = pa.play_attention_carry.launches = 0
+    kl.corr_lookup_kernel.launches = ra.shift.messages = ra.shift.bytes = 0
+    t0 = time.perf_counter()
+    out = pred({"stereo_video": video})
+    seconds = time.perf_counter() - t0
+    counts = dict(play_attention_carry=pa.play_attention_carry.launches,
+                  play_attention_fwd=pa.play_attention.launches,
+                  corr_lookup=kl.corr_lookup_kernel.launches,
+                  messages=ra.shift.messages, bytes=ra.shift.bytes)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pred.predictor.window_fn = window_fn
+
+    plays = {"sound": [], "fault": []}
+    replay_windows: list = []  # the clip's first frames: a window and its tail
+    play = _checked_plays(plays["sound"])
+    try:
+        window_fn = _timed_windows(pred, replay_windows)
+        pred({"stereo_video": video[:fault_frames]})
+        pred.predictor.window_fn = window_fn
+        PPMUpdateLoop._play = play
+        _checked_plays(plays["fault"])
+        carry = _drop_carry(ra)
+        try:
+            fault = pred({"stereo_video": video[:fault_frames]})["disparity"]
+        finally:
+            ra.play_attention_carry = carry
+    finally:
+        PPMUpdateLoop._play = play
+
+    small = {}
+    model = PPMStereo(iters=4, mixed_precision=False, test_mode=True, mesh=mesh)
+    load_flax_params(model, load_npz(ANCHOR))
+    model.cuda().eval()
+    for run in ("sound", "fault"):
+        carry = _drop_carry(ra) if run == "fault" else ra.play_attention_carry
+        try:
+            with torch.no_grad():
+                disp, _ = model(torch.from_numpy(small_left).cuda(),
+                                torch.from_numpy(small_right).cuda())
+        finally:
+            ra.play_attention_carry = carry
+        small[run] = disp.cpu().numpy()
+    return dict(disparity=out["disparity"], fault=fault, plays=plays,
+                replay_windows=len(replay_windows), window_s=window_s,
+                seconds=seconds, counts=counts, peak_gb=peak_gb, small=small,
+                staged=ra.host_staged(mesh.groups["space"], torch.device("cuda")))
+
+
+def _play_shares(calls: list, worst) -> dict:
+    """`worst` (max or min) over the play steps `calls` of each reading as
+    a share of its limit."""
+    return dict(calls=len(calls), max_share=worst(x["max_abs_err"] / x["tol"] for x in calls),
+                mean_share=worst(x["mean_abs_err"] / x["mean_tol"] for x in calls),
+                max_abs_err=worst(x["max_abs_err"] for x in calls),
+                mean_abs_err=worst(x["mean_abs_err"] for x in calls))
+
+
+def phase_ring(main_run: dict, small_run: dict, smi: str):
+    """The main path with its play steps as the ring over RING_RANKS
+    processes sharing the card (gloo, host-staged): kernel 5's launches,
+    the disparity and EPE against the single-process main run; each ringed
+    play step of the clip's first window (and its tail) against the
+    unsharded play on the same inputs; and the small parity's f32 clip through the ring against the
+    single-process f32 output; a dropped carry as the fault of both."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.models.inference import window_trim_bounds
+    from ppmstereo_tpu_torch.parallel.launch import run_group
+
+    t0 = time.perf_counter()
+    results = run_group(_ring_child, RING_RANKS, (main_run["video"], WINDOW, small_run["left"],
+                                                   small_run["right"]),
+                        timeout_s=RING_TIMEOUT_S, threads=4)
+    wall_s = time.perf_counter() - t0
+    ref, gt = main_run["disparity"], main_run["gt"]
+    keep = WINDOW - window_trim_bounds(0, WINDOW, WINDOW, WINDOW // 2)[1]
+    n_windows = len(main_run["window_s"])
+    want_carry = RING_RANKS * LAUNCHES_PER_WINDOW * n_windows
+    # one 1/4-stage message: q bf16, o f32, m and l f32 of this rank's rows
+    rows_q = WINDOW * (HEIGHT // 4 // RING_RANKS) * (WIDTH // 4)
+    quarter_bytes = rows_q * (128 * 2 + 128 * 4 + 8)
+    readings = []
+    for rank, res in enumerate(results):
+        disp, fault = res["disparity"], res["fault"]
+        diff = np.abs(disp - ref)
+        f_diff = np.abs(fault[:keep] - ref[:keep])
+        c = res["counts"]
+        small = {run: float(np.abs(d - small_run["cuda"]).max())
+                 for run, d in res["small"].items()}
+        # the ringed play steps' readings as shares of their limits: the
+        # sound run's worst and the fault's least
+        plays = {run: _play_shares(res["plays"][run], worst)
+                 for run, worst in (("sound", max), ("fault", min))}
+        plays["expected_calls"] = LAUNCHES_PER_WINDOW * res["replay_windows"]
+        r = dict(rank=rank, max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
+                 small_max_abs_diff=small["sound"], small_fault_max_abs_diff=small["fault"],
+                 fault_max_abs_diff=float(f_diff.max()), fault_mean_abs_diff=float(f_diff.mean()),
+                 epe=float(np.abs(disp[..., 0] - gt).mean()),
+                 first_window_epe=float(np.abs(disp[:keep, ..., 0] - gt[:keep]).mean()),
+                 fault_first_window_epe=float(np.abs(fault[:keep, ..., 0] - gt[:keep]).mean()),
+                 plays=plays, window_s=res["window_s"],
+                 seconds=res["seconds"], peak_gb=res["peak_gb"], counts=c,
+                 bytes_per_hop=c["bytes"] / max(c["messages"], 1))
+        readings.append(r)
+        log(f"ring rank {rank} of {RING_RANKS} on one card ({smi}), transport "
+            f"{'gloo, host-staged' if res['staged'] else 'device'}: windows "
+            f"{[round(x, 3) for x in res['window_s']]} s, {res['seconds']:.2f} s in the "
+            f"predictor, peak {res['peak_gb']:.2f} GB; launches kernel 5 "
+            f"{c['play_attention_carry']} (expected {want_carry}), kernel 1 "
+            f"{c['play_attention_fwd']} (expected 0); {c['messages']} messages, "
+            f"{c['bytes'] / 1e9:.3f} GB sent, {r['bytes_per_hop'] / 1e6:.2f} MB per hop on average "
+            f"({quarter_bytes / 1e6:.2f} MB at 1/4); max |disparity - single process| "
+            f"{r['max_abs_diff']:.3e} px (mean {r['mean_abs_diff']:.3e}), "
+            f"EPE {r['epe']:.4f} px (single process {main_run['epe']:.4f}); every hop's carry "
+            f"dropped, first window: {r['fault_max_abs_diff']:.3e} px (mean "
+            f"{r['fault_mean_abs_diff']:.3e}), EPE of its {keep} kept frames "
+            f"{r['fault_first_window_epe']:.4f} px (sound ring {r['first_window_epe']:.4f}); "
+            f"f32 small clip (1, 5, 64, 128): max |disparity "
+            f"- single process| {small['sound']:.3e} px (tol {RING_SMALL_TOL}), with the carry "
+            f"dropped {small['fault']:.3e} px")
+        sound, dropped = plays["sound"], plays["fault"]
+        log(f"  ring rank {rank}, play steps of the first {WINDOW} frames against the unsharded "
+            f"play on the same inputs: {sound['calls']} ringed calls (expected "
+            f"{plays['expected_calls']}), at worst max_abs_err "
+            f"{sound['max_abs_err']:.3e} and mean_abs_err {sound['mean_abs_err']:.3e}, "
+            f"{sound['max_share']:.3f} and {sound['mean_share']:.3f} of their limits; every "
+            f"hop's carry dropped: {dropped['calls']} calls, at least {dropped['max_share']:.1f} "
+            f"and {dropped['mean_share']:.1f} times their limits (max_abs_err "
+            f"{dropped['max_abs_err']:.3e}, mean_abs_err {dropped['mean_abs_err']:.3e})")
+    log(f"ring phase: {wall_s:.1f} s wall with process start; the times are "
+        f"{RING_RANKS} processes sharing one card, not a scaling result")
+    for r, res in zip(readings, results):
+        disp = res["disparity"]
+        if disp.shape != ref.shape or not np.isfinite(disp).all():
+            raise RuntimeError(f"ring rank {r['rank']}: disparity of shape {disp.shape} "
+                               f"(want {ref.shape}) or non-finite")
+        if not res["staged"]:
+            raise RuntimeError("the ring phase expects a gloo group staged through the host")
+        if r["counts"]["play_attention_carry"] != want_carry or r["counts"]["play_attention_fwd"]:
+            raise RuntimeError(f"ring rank {r['rank']}: launches {r['counts']}, expected "
+                               f"{want_carry} of kernel 5 and none of kernel 1")
+        if not abs(r["epe"] - main_run["epe"]) <= RING_EPE_TOL:
+            raise RuntimeError(f"ring rank {r['rank']}: EPE {r['epe']:.4f} px against the "
+                               f"single process's {main_run['epe']:.4f} px")
+        if r["plays"]["sound"]["calls"] != r["plays"]["expected_calls"] or not (
+                r["plays"]["sound"]["max_share"] <= 1 and r["plays"]["sound"]["mean_share"] <= 1):
+            raise RuntimeError(f"ring rank {r['rank']}: the ringed play steps disagree with the "
+                               f"unsharded play: {r['plays']['sound']}")
+        if not (r["plays"]["fault"]["max_share"] > 1 and r["plays"]["fault"]["mean_share"] > 1):
+            raise RuntimeError(f"the play-step limits do not catch a dropped carry: "
+                               f"{r['plays']['fault']}")
+        if not r["small_max_abs_diff"] <= RING_SMALL_TOL:
+            raise RuntimeError(f"ring rank {r['rank']} differs from the single-process f32 run "
+                               f"by {r['small_max_abs_diff']:.3e} px")
+        if not r["small_fault_max_abs_diff"] > RING_SMALL_TOL:
+            raise RuntimeError("the ring's disparity limit does not catch a dropped carry")
+    return dict(readings=readings, wall_s=wall_s,
+                launches=readings[0]["counts"]["play_attention_carry"],
+                lookup_launches=readings[0]["counts"]["corr_lookup"])
 
 
 # kernel-name fragments -> the layer that launches them
@@ -665,9 +1243,11 @@ _TRAIN_GROUPS = (
 
 
 def _launch_counts():
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.kernels import play_attention as pa
 
-    return {"play_attention_fwd": pa.play_attention.launches,
+    return {"corr_lookup": kl.corr_lookup_kernel.launches,
+            "play_attention_fwd": pa.play_attention.launches,
             "play_attention_fwd_res": pa.play_attention_fwd_res.launches,
             "play_attention_bwd_dq": pa.play_attention_bwd_dq.launches,
             "play_attention_bwd_dkv": pa.play_attention_bwd_dkv.launches}
@@ -681,6 +1261,7 @@ def phase_train(smi: str):
     import torch
 
     from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.kernels import play_attention as pa
     from ppmstereo_tpu_torch.train.state import param_label
     from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
@@ -705,7 +1286,7 @@ def phase_train(smi: str):
             yield batch
 
     for fn in (pa.play_attention, pa.play_attention_fwd_res, pa.play_attention_bwd_dq,
-               pa.play_attention_bwd_dkv):
+               pa.play_attention_bwd_dkv, kl.corr_lookup_kernel):
         fn.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -834,6 +1415,10 @@ _KERNEL_RECORDS = (
      "ppmstereo_tpu/kernels/play_attention.py:378"),
     ("bwd_dkv", "play_attention_bwd_dkv", "ppmstereo_tpu_torch/csrc/play_attention_bwd.cu",
      "ppmstereo_tpu/kernels/play_attention.py:425"),
+    ("carry", "play_attention_carry", "ppmstereo_tpu_torch/csrc/play_attention.cu",
+     "ppmstereo_tpu/kernels/play_attention.py:145"),
+    ("lookup", "corr_lookup", "ppmstereo_tpu_torch/csrc/corr_lookup.cu",
+     "ppmstereo_tpu/kernels/corr_lookup.py:36"),
 )
 
 
@@ -851,8 +1436,19 @@ def kernel_record(key: str, name: str, source: str, replaces: str, rows: list, l
         "mean_abs_err": worst_mean["mean_abs_err"], "mean_tol": worst_mean["mean_tol"],
         "ms": quarter["ms"], "plain_ms": quarter["plain_ms"], "bound_ms": quarter["bound_ms"],
         "bound_by": quarter["bound_by"], "library_ms": quarter["library_ms"],
-        "shapes": rows,
+        "shapes": [_shape_summary(row) for row in rows],
     }
+
+
+def _shape_summary(row: dict) -> dict:
+    """One shape of a kernel record: its times and its worst check as a
+    share of the limit (max and mean readings); the log has every check."""
+    checks = row["checks"].values()
+    out = {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "device_ms")
+           if k in row}
+    out["max_share"] = max(c["max_abs_err"] / c["tol"] for c in checks)
+    out["mean_share"] = max(c["mean_abs_err"] / c["mean_tol"] for c in checks)
+    return out
 
 
 def main() -> None:
@@ -862,24 +1458,36 @@ def main() -> None:
         build_s = phase_build()
     with phase("kernels"):
         rows = phase_kernels(smi)
+    with phase("lookup"):
+        rows["lookup"] = phase_lookup(smi)
     with phase("small parity"):
-        phase_small_parity()
+        small_run = phase_small_parity()
     with phase("train small parity"):
         phase_train_small_parity()
     with phase("main"):
         main_run = phase_main(smi)
     with phase("profile"):
         phase_profile(main_run, smi)
+    with phase("ring"):
+        ring_run = phase_ring(main_run, small_run, smi)
     with phase("train"):
         train_run = phase_train(smi)
 
     # launches: kernel 1 on the inference path's run, kernels 2-4 on the
-    # training path's run (each path driven with the counts set to 0)
-    launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"])
+    # training path's run, kernel 5 on the ring path's run (rank 0); kernel
+    # 6 summed over the three runs, on whose paths it is not (the model runs
+    # ops/corr.py::corr_lookup, as the JAX model runs XLA's). Each path is
+    # driven with its counts set to 0 just before.
+    lookup = (main_run["lookup_launches"] + ring_run["lookup_launches"]
+              + train_run["launches"]["corr_lookup"])
+    launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"],
+                    play_attention_carry=ring_run["launches"], corr_lookup=lookup)
     records = [kernel_record(key, name, source, replaces, rows[key], launches[name])
                for key, name, source, replaces in _KERNEL_RECORDS]
     records[0]["build_s"] = build_s["play_attention"]
     records[2]["build_s"] = build_s["play_attention_bwd"]
+    records[5]["build_s"] = build_s["corr_lookup"]
+    records[4]["ring"] = ring_run["readings"]
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

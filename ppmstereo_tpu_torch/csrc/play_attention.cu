@@ -40,6 +40,23 @@
 // The backward kernels (play_attention_bwd.cu) recompute the normalised
 // probabilities as exp2(scale*log2(e)*q.k - lse). The output o is computed
 // by the same instructions with or without the residual.
+//
+// The carry mode (template CARRY = true, `play_attention_carry`) is one hop
+// of the ring play attention. It replaces the Pallas `_flash_carry_kernel`
+// (reached through `flash_attend_carry`, called per hop by
+// ppmstereo_tpu/parallel/ring_attention.py::_ring_local). The block starts
+// from an incoming unnormalised state instead of an empty one: o (B, Lq, D)
+// f32, and m (the base-2 row max) and l (the row sum) as (B, Lq) f32, one
+// value per row (not the TPU's 128-lane tiles). It runs the same key loop and
+// writes the merged state back in place, unnormalised:
+//   m' = max(m, rowmax s), alpha = exp2(m - m'),
+//   l' = alpha l + rowsum exp2(s - m'), o' = alpha o + exp2(s - m') V.
+// The caller divides o by l after the last hop. Kernel 1 (CARRY = false) is
+// compiled from the same source with the carry code removed at compile time,
+// so its instructions, and its output, are unchanged. A hop reads and writes
+// the f32 state besides q, k and v: at a 1/4-stage hop of the 2-way ring
+// (10 x 5,120 x 25,600) that is 2 x 26 MB against 144 MB of bf16 inputs,
+// still far below the compute bound of 6.7e11 FLOP.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -122,13 +139,17 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* lo,
   return a | (b << 16);
 }
 
+// CARRY: o and lse are unused; the state (co, cm, cl) is read at the start
+// and written back, merged, at the end. Otherwise co, cm and cl are unused.
+template <bool CARRY>
 __global__ void __launch_bounds__(NTHREADS)
     play_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
                               const __nv_bfloat16* __restrict__ k,
                               const __nv_bfloat16* __restrict__ v,
                               __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, int Lq, int Lk,
-                              float scale_log2) {
+                              float* __restrict__ lse, float* __restrict__ co,
+                              float* __restrict__ cm, float* __restrict__ cl,
+                              int Lq, int Lk, float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + BM * LDS;      // two stages of BN rows
@@ -160,6 +181,36 @@ __global__ void __launch_bounds__(NTHREADS)
   }
   float row_max[2] = {-INFINITY, -INFINITY};  // rows g and g + 8, base 2
   float row_sum[2] = {0.f, 0.f};              // this lane's partial sums
+  const int r0 = m0 + warp * 16 + g;
+  const int r1 = r0 + 8;
+  if constexpr (CARRY) {
+    // start from the incoming state: this lane's columns of o, the row max,
+    // and the row sum in the partial sum of the row's first lane
+    const float* cob = co + static_cast<size_t>(b) * Lq * D;
+    const size_t sb = static_cast<size_t>(b) * Lq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (r0 < Lq) {
+        const float2 x = *reinterpret_cast<const float2*>(cob + static_cast<size_t>(r0) * D + c);
+        acc[n][0] = x.x;
+        acc[n][1] = x.y;
+      }
+      if (r1 < Lq) {
+        const float2 x = *reinterpret_cast<const float2*>(cob + static_cast<size_t>(r1) * D + c);
+        acc[n][2] = x.x;
+        acc[n][3] = x.y;
+      }
+    }
+    if (r0 < Lq) {
+      row_max[0] = cm[sb + r0];
+      if (t == 0) row_sum[0] = cl[sb + r0];
+    }
+    if (r1 < Lq) {
+      row_max[1] = cm[sb + r1];
+      if (t == 0) row_sum[1] = cl[sb + r1];
+    }
+  }
 
   for (int j = 0; j < ntiles; ++j) {
     const int st = j & 1;
@@ -266,10 +317,36 @@ __global__ void __launch_bounds__(NTHREADS)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  if constexpr (CARRY) {
+    // the merged state, unnormalised, in place
+    float* cob = co + static_cast<size_t>(b) * Lq * D;
+    const size_t sb = static_cast<size_t>(b) * Lq;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const int c = n * 8 + 2 * t;
+      if (r0 < Lq) {
+        *reinterpret_cast<float2*>(cob + static_cast<size_t>(r0) * D + c) =
+            make_float2(acc[n][0], acc[n][1]);
+      }
+      if (r1 < Lq) {
+        *reinterpret_cast<float2*>(cob + static_cast<size_t>(r1) * D + c) =
+            make_float2(acc[n][2], acc[n][3]);
+      }
+    }
+    if (t == 0) {
+      if (r0 < Lq) {
+        cm[sb + r0] = row_max[0];
+        cl[sb + r0] = l0;
+      }
+      if (r1 < Lq) {
+        cm[sb + r1] = row_max[1];
+        cl[sb + r1] = l1;
+      }
+    }
+    return;
+  }
   const float inv0 = 1.f / l0;
   const float inv1 = 1.f / l1;
-  const int r0 = m0 + warp * 16 + g;
-  const int r1 = r0 + 8;
   __nv_bfloat16* ob = o + static_cast<size_t>(b) * Lq * D;
 #pragma unroll
   for (int n = 0; n < D / 8; ++n) {
@@ -290,18 +367,20 @@ __global__ void __launch_bounds__(NTHREADS)
   }
 }
 
+template <bool CARRY>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Lq, int Lk, float scale_log2, void* stream) {
+           float* co, float* cm, float* cl, int B, int Lq, int Lk,
+           float scale_log2, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      play_attention_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      play_attention_fwd_kernel<CARRY>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BM - 1) / BM, B);
-  play_attention_fwd_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                              static_cast<cudaStream_t>(stream)>>>(
+  play_attention_fwd_kernel<CARRY><<<grid, NTHREADS, SMEM_BYTES,
+                                     static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      Lq, Lk, scale_log2);
+      co, cm, cl, Lq, Lk, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -313,7 +392,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 extern "C" int play_attention_fwd(const void* q, const void* k, const void* v,
                                   void* o, int B, int Lq, int Lk,
                                   float scale_log2, void* stream) {
-  return launch(q, k, v, o, nullptr, B, Lq, Lk, scale_log2, stream);
+  return launch<false>(q, k, v, o, nullptr, nullptr, nullptr, nullptr, B, Lq,
+                       Lk, scale_log2, stream);
 }
 
 // As play_attention_fwd, and writes lse (B, Lq) f32: each row's base-2
@@ -322,6 +402,18 @@ extern "C" int play_attention_fwd_res(const void* q, const void* k,
                                       const void* v, void* o, void* lse, int B,
                                       int Lq, int Lk, float scale_log2,
                                       void* stream) {
-  return launch(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, scale_log2,
-                stream);
+  return launch<false>(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
+                       nullptr, B, Lq, Lk, scale_log2, stream);
+}
+
+// One ring hop (kernel 5): q (B, Lq, 128), k and v (B, Lk, 128) bf16; the
+// state o (B, Lq, 128), m and l (B, Lq) f32, read and overwritten with the
+// merged state (unnormalised; m base 2). All contiguous on the current
+// device, 16-byte aligned. Returns cudaGetLastError() (0 on success).
+extern "C" int play_attention_carry(const void* q, const void* k, const void* v,
+                                    void* o, void* m, void* l, int B, int Lq,
+                                    int Lk, float scale_log2, void* stream) {
+  return launch<true>(q, k, v, nullptr, nullptr, static_cast<float*>(o),
+                      static_cast<float*>(m), static_cast<float*>(l), B, Lq, Lk,
+                      scale_log2, stream);
 }

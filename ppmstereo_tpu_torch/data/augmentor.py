@@ -199,55 +199,55 @@ class SequenceDispFlowAugmentor:
         self.eraser_aug_prob = 0.5
         self.rng = np.random.default_rng(seed)
 
-    def _jitter_once(self, img):
-        p = self.jitter.sample_params(self.rng)
+    def _jitter_once(self, img, rng):
+        p = self.jitter.sample_params(rng)
         out = ColorJitter.apply(img, p)
         g = self.GAMMA
-        out = _adjust_gamma(out, self.rng.uniform(g[0], g[1]), self.rng.uniform(g[2], g[3]))
+        out = _adjust_gamma(out, rng.uniform(g[0], g[1]), rng.uniform(g[2], g[3]))
         return out.astype(np.uint8)
 
-    def color_transform(self, images: np.ndarray) -> np.ndarray:
+    def color_transform(self, images: np.ndarray, rng) -> np.ndarray:
         t = images.shape[0]
-        if self.rng.random() < self.asymmetric_color_aug_prob:
-            return np.stack([np.stack([self._jitter_once(images[i, c]) for c in (0, 1)])
+        if rng.random() < self.asymmetric_color_aug_prob:
+            return np.stack([np.stack([self._jitter_once(images[i, c], rng) for c in (0, 1)])
                              for i in range(t)])
         # one jitter for the whole clip and both cameras
         stack = images.reshape(t * 2, *images.shape[2:])
-        p = self.jitter.sample_params(self.rng)
-        gamma = self.rng.uniform(self.GAMMA[0], self.GAMMA[1])
-        gain = self.rng.uniform(self.GAMMA[2], self.GAMMA[3])
+        p = self.jitter.sample_params(rng)
+        gamma = rng.uniform(self.GAMMA[0], self.GAMMA[1])
+        gain = rng.uniform(self.GAMMA[2], self.GAMMA[3])
         out = [_adjust_gamma(ColorJitter.apply(im, p), gamma, gain).astype(np.uint8)
                for im in stack]
         return np.stack(out).reshape(images.shape)
 
-    def eraser_transform(self, images: np.ndarray, bounds=(50, 100)) -> np.ndarray:
+    def eraser_transform(self, images: np.ndarray, rng, bounds=(50, 100)) -> np.ndarray:
         t, _, ht, wd, _ = images.shape
         mean_color = images[0, 0].reshape(-1, 3).mean(axis=0)
         images = images.copy()
         for i in range(t):
             for cam in (0, 1):
-                if self.rng.random() < self.eraser_aug_prob:
-                    for _ in range(self.rng.integers(1, 3)):
-                        x0 = self.rng.integers(0, wd)
-                        y0 = self.rng.integers(0, ht)
-                        dx = self.rng.integers(bounds[0], bounds[1])
-                        dy = self.rng.integers(bounds[0], bounds[1])
+                if rng.random() < self.eraser_aug_prob:
+                    for _ in range(rng.integers(1, 3)):
+                        x0 = rng.integers(0, wd)
+                        y0 = rng.integers(0, ht)
+                        dx = rng.integers(bounds[0], bounds[1])
+                        dy = rng.integers(bounds[0], bounds[1])
                         images[i, cam, y0: y0 + dy, x0: x0 + dx] = mean_color
         return images
 
-    def _sample_scales(self, ht, wd):
+    def _sample_scales(self, ht, wd, rng):
         min_scale = max((self.crop_size[0] + 8) / float(ht), (self.crop_size[1] + 8) / float(wd))
-        scale = 2 ** self.rng.uniform(self.min_scale, self.max_scale)
+        scale = 2 ** rng.uniform(self.min_scale, self.max_scale)
         sx = sy = scale
-        if self.rng.random() < self.stretch_prob:
-            sx *= 2 ** self.rng.uniform(-self.max_stretch, self.max_stretch)
-            sy *= 2 ** self.rng.uniform(-self.max_stretch, self.max_stretch)
+        if rng.random() < self.stretch_prob:
+            sx *= 2 ** rng.uniform(-self.max_stretch, self.max_stretch)
+            sy *= 2 ** rng.uniform(-self.max_stretch, self.max_stretch)
         return max(sx, min_scale), max(sy, min_scale)
 
-    def spatial_transform(self, images, disp):
+    def spatial_transform(self, images, disp, rng):
         t, _, ht, wd, _ = images.shape
-        sx, sy = self._sample_scales(ht, wd)
-        if self.rng.random() < self.spatial_aug_prob:
+        sx, sy = self._sample_scales(ht, wd, rng)
+        if rng.random() < self.spatial_aug_prob:
             images = np.stack([np.stack([resize_linear(images[i, c], sx, sy) for c in (0, 1)])
                                for i in range(t)])
             if disp is not None:
@@ -259,11 +259,11 @@ class SequenceDispFlowAugmentor:
         # the crop, the right view shifted by -2..2 rows per frame
         ch, cw = self.crop_size
         hh, ww = images.shape[2], images.shape[3]
-        y0 = int(self.rng.integers(2, hh - ch - 2))
-        x0 = int(self.rng.integers(2, ww - cw - 2))
+        y0 = int(rng.integers(2, hh - ch - 2))
+        x0 = int(rng.integers(2, ww - cw - 2))
         imgs_out, disp_out = [], []
         for i in range(t):
-            y1 = y0 + int(self.rng.integers(-2, 3))
+            y1 = y0 + int(rng.integers(-2, 3))
             left = images[i, 0, y0: y0 + ch, x0: x0 + cw]
             right = images[i, 1, y1: y1 + ch, x0: x0 + cw]
             imgs_out.append(np.stack([left, right]))
@@ -274,9 +274,16 @@ class SequenceDispFlowAugmentor:
                 disp_out.append(np.stack(d))
         return np.stack(imgs_out), np.stack(disp_out) if disp is not None else None
 
-    def __call__(self, images, disp):
-        images = self.color_transform(images)
-        images = self.eraser_transform(images)
-        images, disp = self.spatial_transform(images, disp)
+    def __call__(self, images, disp, rng: np.random.Generator | None = None):
+        """Augment one clip with `rng`. The draws come in one fixed order,
+        so one generator state gives one augmentation. The training loader
+        always passes a generator of the sample's own (`data/loader.py`).
+        With none, the augmentor's own generator (seeded by `seed`) is
+        drawn from, call after call: that is the JAX package's augmentor,
+        and the path the parity tests hold against it."""
+        rng = self.rng if rng is None else rng
+        images = self.color_transform(images, rng)
+        images = self.eraser_transform(images, rng)
+        images, disp = self.spatial_transform(images, disp, rng)
         return np.ascontiguousarray(images), (
             np.ascontiguousarray(disp) if disp is not None else None)

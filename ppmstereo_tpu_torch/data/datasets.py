@@ -72,11 +72,15 @@ class StereoSequenceDataset:
     def _load_sample(self, sample) -> dict:
         raise NotImplementedError
 
-    def __getitem__(self, index) -> dict:
+    def __getitem__(self, index, rng: np.random.Generator | None = None) -> dict:
+        """Sample `index`, augmented with `rng`. The loader passes one
+        generator per sample, seeded from (seed, epoch, index); with None
+        the augmentor draws from its own generator, as the JAX package's
+        dataset does (the reference path of the parity tests)."""
         out = self._load_sample(self.sample_list[index % len(self.sample_list)])
         imgs, disp = out["img"], out["disp"]
         if self.augmentor is not None:
-            imgs, disp = self.augmentor(imgs, disp)
+            imgs, disp = self.augmentor(imgs, disp, rng)
         disp = np.asarray(disp, np.float32)
         valid = ((np.abs(disp[..., 0]) < 512) & (disp[..., 0] != 0)).astype(np.float32)
         return {"img": imgs.astype(np.float32), "disp": disp[..., :1], "valid": valid}

@@ -1,8 +1,9 @@
 """Threaded prefetching batch loader (counterpart of
 ppmstereo_tpu/data/loader.py): dataset work is numpy, which releases the
 GIL, so a thread pool in the training process replaces worker processes.
-Each epoch reshuffles with a seeded generator; the per-sample randomness
-belongs to the augmentor.
+Each epoch reshuffles with a seeded generator, and each sample is augmented
+with a generator of its own, seeded from (seed, epoch, index): the batches
+of one seed are the same however the threads interleave.
 
 Batches are channels-last numpy dicts: left/right (B, T, H, W, 3) float32,
 disparity (B, T, H, W, 1), valid (B, T, H, W).
@@ -38,6 +39,8 @@ class PrefetchLoader:
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
+        self.seed = seed
+        self.epoch = 0
         self.rng = np.random.default_rng(seed)
 
     def __len__(self):
@@ -48,6 +51,11 @@ class PrefetchLoader:
         self.rng.shuffle(order)
         batches = [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
         batches = [b for b in batches if len(b) == self.batch_size]
+        epoch, self.epoch = self.epoch, self.epoch + 1
+
+        def sample(index):
+            rng = np.random.default_rng((self.seed, epoch, int(index)))
+            return self.dataset.__getitem__(index, rng)
 
         q: queue.Queue = queue.Queue(maxsize=self.PREFETCH)
         stop = threading.Event()
@@ -59,7 +67,7 @@ class PrefetchLoader:
                     for idxs in batches:
                         if stop.is_set():
                             return
-                        q.put(collate(list(pool.map(self.dataset.__getitem__, idxs))))
+                        q.put(collate(list(pool.map(sample, idxs))))
             except BaseException as exc:  # handed to the consumer below
                 failure.append(exc)
             q.put(None)

@@ -14,6 +14,7 @@ against on the card:
   play_attention.cu, forward + residual   `_flash_kernel(save_residuals)` `play_attention_fwd_res_plain`
   play_attention_bwd.cu, dq               `_flash_bwd_dq_kernel`          `play_attention_bwd_plain`
   play_attention_bwd.cu, dk and dv        `_flash_bwd_dkv_kernel`         `play_attention_bwd_plain`
+  play_attention.cu, carry (ring hop)     `_flash_carry_kernel`           `play_attention_carry_plain`
 
 The plain versions are chunked over query rows with f32 logits, as the JAX
 package's `_play_attention_xla` and `_attention_bwd_xla` are. The kernels
@@ -26,6 +27,11 @@ requires a gradient it goes through `PlayAttention`, a
 the two backward kernels, on the CPU the plain forward and
 `play_attention_bwd_plain`. On a card every wrapper launches its kernel or
 raises; none falls back to a plain version.
+
+`play_attention_carry` is one hop of the ring play attention
+(`parallel/ring_attention.py`): it merges the attention of q over a block
+of keys into an incoming unnormalised online-softmax state (o, m, l). It is
+forward only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -106,12 +112,44 @@ def play_attention_bwd_plain(q, k, v, do, scale: float, q_chunk: int = 1024):
     return dq, dk, dv
 
 
+def play_attention_carry_plain(q, k, v, o, m, l, scale: float, q_chunk: int = 1024):
+    """Reference version of one ring hop, the counterpart of the JAX
+    package's `_flash_carry_kernel`: q (B, Lq, D), k/v (B, Lk, D), and the
+    incoming state o (B, Lq, D) f32 unnormalised, m (B, Lq) f32 the base-2
+    row max and l (B, Lq) f32 the row sum. With s = scale log2(e) q k^T in
+    f32 (chunked over query rows):
+
+        m' = max(m, rowmax s),  p = exp2(s - m'),  alpha = exp2(m - m'),
+        l' = alpha l + rowsum p,  o' = alpha o + p V,
+
+    p rounded to v's dtype before P V as the kernel does. Returns new
+    (o', m', l'); the inputs are not changed."""
+    b, lq, _ = q.shape
+    o_new, m_new, l_new = torch.empty_like(o), torch.empty_like(m), torch.empty_like(l)
+    for bi in range(b):
+        kf, vf = k[bi].float(), v[bi].float()
+        for s0 in range(0, lq, q_chunk):
+            s1 = min(s0 + q_chunk, lq)
+            logits = torch.matmul(q[bi, s0:s1].float(), kf.t()) * (scale * LOG2E)
+            m_blk = torch.maximum(m[bi, s0:s1], logits.max(dim=-1).values)
+            p = torch.exp2(logits - m_blk[:, None])
+            alpha = torch.exp2(m[bi, s0:s1] - m_blk)
+            l_new[bi, s0:s1] = alpha * l[bi, s0:s1] + p.sum(dim=-1)
+            o_new[bi, s0:s1] = alpha[:, None] * o[bi, s0:s1] + torch.matmul(
+                p.to(v.dtype).float(), vf)
+            m_new[bi, s0:s1] = m_blk
+    return o_new, m_new, l_new
+
+
 _ARGTYPES = {
     # q, k, v, o, B, Lq, Lk, scale_log2, stream
     "play_attention_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.c_void_p],
     # q, k, v, o, lse, B, Lq, Lk, scale_log2, stream
     "play_attention_fwd_res": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
+    + [ctypes.c_float, ctypes.c_void_p],
+    # q, k, v, o, m, l, B, Lq, Lk, scale_log2, stream
+    "play_attention_carry": [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
     + [ctypes.c_float, ctypes.c_void_p],
     # q, k, v, dout, lse, di, dq, B, Lq, Lk, scale_log2, scale, stream
     "play_attention_bwd_dq": [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
@@ -294,6 +332,38 @@ def play_attention(q, k, v, scale: float):
 
 
 play_attention.launches = 0
+
+
+def play_attention_carry(q, k, v, o, m, l, scale: float):
+    """One ring hop: merge softmax(scale q k^T) over this block of keys into
+    the state (o, m, l) (see `play_attention_carry_plain`). CPU tensors take
+    the plain version and get new state tensors. CUDA tensors launch kernel
+    5 (bf16 q/k/v, D = 128, f32 state), which updates o, m and l in place
+    and returns them, or raise; `play_attention_carry.launches` counts
+    kernel 5."""
+    if _on_cpu(q, k, v, o, m, l):
+        return play_attention_carry_plain(q, k, v, o, m, l, scale)
+    _check_cuda_inputs(q, k, v)
+    b, lq, _ = q.shape
+    _check_cuda_tensor("o", o, q.device, torch.float32, tuple(q.shape))
+    for name, x in (("m", m), ("l", l)):
+        _check_cuda_tensor(name, x, q.device, torch.float32, (b, lq))
+    _launch("play_attention", "play_attention_carry", q.device,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
+            l.data_ptr(), b, lq, k.shape[1], scale * LOG2E)
+    play_attention_carry.launches += 1
+    return o, m, l
+
+
+play_attention_carry.launches = 0
+
+
+def play_attention_carry_cost(b: int, lq: int, lk: int, d: int = HEAD_DIM) -> tuple[float, float]:
+    """(FLOP, bytes) one hop needs: the forward's two products, bf16 q, k, v
+    read once, and the f32 state (o, m, l) read once and written once."""
+    flops = 4.0 * b * lq * lk * d
+    nbytes = 2.0 * b * d * (lq + 2 * lk) + 2 * 4.0 * b * lq * (d + 2)
+    return flops, nbytes
 
 
 def play_attention_cost(b: int, lq: int, lk: int, d: int = HEAD_DIM) -> tuple[float, float]:

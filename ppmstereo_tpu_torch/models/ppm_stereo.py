@@ -15,6 +15,16 @@ The recomputation reuses the top-k frame picks of the forward pass, so the
 gradient belongs to the picks the loss saw even where a near-tie of frame
 scores could round the other way on a second evaluation.
 
+Under a mesh whose `space` axis has n > 1 processes (test mode only), every
+process runs the whole window, except the play step of each stage whose
+rows H divide by n: there process p takes the query rows [p H/n, (p+1) H/n)
+and the same rows of the picked memory, attends through the ring play
+attention (`parallel/ring_attention.py`), and the rows are all-gathered
+back. The top-k picks of space-rank 0 are broadcast every iteration, so a
+near-tie of frame scores cannot split the processes. This is the JAX
+package's ring path (`ring_attention=True` under a `space` mesh) with its
+divisibility rule; the rest of the window is not sharded here.
+
 Tensors are (B, T, H, W, C) at the public boundary; images are in [0, 255].
 The bf16 policy follows the JAX modules' `dtype=`: each layer computes in
 `dtype`, normalisation statistics, the correlation, the frame scores and
@@ -25,6 +35,7 @@ attention whatever the policy.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
@@ -46,6 +57,7 @@ from ppmstereo_tpu_torch.ops.geometry import (
     interp_bilinear,
 )
 from ppmstereo_tpu_torch.ops.upsample import convex_upsample_3d
+from ppmstereo_tpu_torch.parallel import ring_attention
 
 
 # The shipped configuration (the JAX package's `PPMStereoConfig()` defaults)
@@ -64,12 +76,13 @@ class PPMUpdateLoop(nn.Module):
 
     def __init__(self, iters: int, dtype: torch.dtype, with_attention: bool = False,
                  with_init_hidden: bool = False, interp_scale: int = 1,
-                 collect_preds: bool = False):
+                 collect_preds: bool = False, space_group=None):
         super().__init__()
         self.iters = iters
         self.dtype = dtype
         self.interp_scale = interp_scale
         self.collect_preds = collect_preds
+        self.space_group = space_group  # the ring's process group, or None
         self.update_block = SequenceUpdateBlock3D(with_attention, with_init_hidden, dtype)
 
     def _play(self, query_pe, key_aug, value, idx, score_norm):
@@ -81,11 +94,24 @@ class PPMUpdateLoop(nn.Module):
         b, t, h, w, c = query_pe.shape
         k = idx.shape[-1]
         scale = play_scale(c)
+        group = self.space_group
+        n = dist.get_world_size(group) if group is not None else 1
+        ring = n > 1 and h % n == 0  # else every rank runs the whole play
+        if ring:
+            # this rank's rows of the queries and of the bank
+            p = dist.get_rank(group)
+            mine = slice(p * h // n, (p + 1) * h // n)
+            query_pe, key_aug, value = (x[:, :, mine] for x in (query_pe, key_aug, value))
         rows = torch.arange(b, device=idx.device)[:, None, None]
         sel_key = key_aug[rows, idx]  # (B,T,k,H,W,2C), an exact index gather
         sel_val = value[rows, idx]
         modw = score_norm[:, :, :, None, None, None].to(sel_key.dtype)
         sel_key = sel_key[..., :c] * modw + sel_key[..., c:]
+        if ring:
+            out = ring_attention.ring_play_attention(
+                query_pe.to(torch.bfloat16), sel_key.to(torch.bfloat16),
+                sel_val.to(torch.bfloat16), scale, group)
+            return ring_attention.all_gather(out, group, dim=2).to(self.dtype)
         q_tok = query_pe.reshape(b * t, h * w, c).to(torch.bfloat16)
         k_tok = sel_key.reshape(b * t, k * h * w, c).to(torch.bfloat16)
         v_tok = sel_val.reshape(b * t, k * h * w, c).to(torch.bfloat16)
@@ -124,7 +150,10 @@ class PPMUpdateLoop(nn.Module):
         # the same picks: both evaluations gather the selected scores (topk's
         # values and gradient) at the indices the first one chose
         if not picked:
-            picked.append(torch.topk(frame_score.detach(), min(TOP_K, t), dim=-1).indices)
+            idx = torch.topk(frame_score.detach(), min(TOP_K, t), dim=-1).indices
+            if self.space_group is not None:  # one set of picks for the ring
+                idx = ring_attention.broadcast_from_first(idx, self.space_group)
+            picked.append(idx)
             if picks is not None:
                 picks.append(picked[0])
         idx = picked[0]
@@ -202,11 +231,26 @@ class PPMStereo(nn.Module):
 
     num_frames sizes the SST time embedding (the training clip length).
     Autograd is the caller's choice: inference callers run it under
-    `torch.no_grad()`."""
+    `torch.no_grad()`.
+
+    mesh (`parallel/mesh.py`): with a `space` axis of n > 1 processes, the
+    play steps run as the ring over it (test mode only). The data and seq
+    axes are not ported yet and must be 1."""
 
     def __init__(self, iters: int = 10, mixed_precision: bool = True,
-                 test_mode: bool = False, num_frames: int = 5):
+                 test_mode: bool = False, num_frames: int = 5, mesh=None):
         super().__init__()
+        space_group = None
+        if mesh is not None:
+            if mesh.shape["data"] > 1 or mesh.shape["seq"] > 1:
+                raise NotImplementedError(
+                    f"mesh {mesh.shape}: the port shards the space axis only; the data "
+                    "and seq axes are later work (ROADMAP)")
+            if mesh.shape["space"] > 1:
+                if not test_mode:
+                    raise ValueError("the ring play attention is inference only: a mesh "
+                                     "with space > 1 needs test_mode=True")
+                space_group = mesh.groups["space"]
         self.test_mode = test_mode
         self.dtype = dtype = torch.bfloat16 if mixed_precision else torch.float32
         self.fnet = BasicEncoder(DIM, dtype)
@@ -218,9 +262,11 @@ class PPMStereo(nn.Module):
         train = not test_mode
         self.update_block16 = PPMUpdateLoop(half, dtype, with_attention=True,
                                             with_init_hidden=True, interp_scale=4,
-                                            collect_preds=train)
-        self.update_block08 = PPMUpdateLoop(half, dtype, interp_scale=2, collect_preds=train)
-        self.update_block04 = PPMUpdateLoop(iters, dtype, collect_preds=train)
+                                            collect_preds=train, space_group=space_group)
+        self.update_block08 = PPMUpdateLoop(half, dtype, interp_scale=2, collect_preds=train,
+                                            space_group=space_group)
+        self.update_block04 = PPMUpdateLoop(iters, dtype, collect_preds=train,
+                                            space_group=space_group)
 
     def compute_qk_similarity(self, query, key):
         """Cosine similarity of pooled per-frame descriptors:

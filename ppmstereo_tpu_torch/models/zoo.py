@@ -36,17 +36,22 @@ class StereoVideoPredictor:
 def model_zoo(model_name: str, *, params: Mapping[str, np.ndarray],
               kernel_size: int = 20, iters: int = 20,
               mixed_precision: bool = True,
-              device: str | torch.device | None = None):
+              device: str | torch.device | None = None, mesh=None):
     """Build a ready-to-run predictor by name, with the JAX package's flat
     parameters (`{"params/a/b/kernel": array}`, e.g. `load_npz` of
     checkpoints/anchor_r5.npz), at the shipped configuration in bf16, or f32
     with `mixed_precision=False`. Runs on `cuda` unless `device` names
-    another device; raises when there is no card and no CPU request."""
+    another device; raises when there is no card and no CPU request.
+
+    mesh (`parallel/mesh.make_mesh`): with a `space` axis of n > 1, every
+    process of the mesh calls the predictor on the same video; the play
+    steps run as the ring over the processes, and every process returns
+    the whole stitched video."""
     if model_name != "PPMStereoModel":
         raise ValueError(f"unknown model {model_name!r}; available: ['PPMStereoModel']")
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
-    model = PPMStereo(iters, mixed_precision, test_mode=True)
+    model = PPMStereo(iters, mixed_precision, test_mode=True, mesh=mesh)
     load_flax_params(model, params)
     return StereoVideoPredictor(model, kernel_size, dev)

@@ -2,8 +2,9 @@
 
 Counterpart of ppmstereo_tpu/ops/corr.py for the PPMStereo path. The lookup
 is the two-tap gather form (`_lookup_level_gather`) in plain PyTorch, as the
-JAX model leaves its lookup to XLA; the Pallas lookup kernel of the JAX
-package is not on its main path and is still to be ported.
+JAX model leaves its lookup to XLA. The counterpart of the JAX package's
+Pallas lookup kernel, `kernels/corr_lookup.py`, holds this lookup as its
+plain version and is on no path of the model yet.
 
 Tensors are channels-last. fmap: (B, H, W, C). volume: (B, H, W1, W2).
 """

@@ -89,8 +89,23 @@ def export_npz(model: nn.Module, path: str | Path) -> None:
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     """Load flat flax parameters into `model`; every parameter of the model
-    must be given and every given parameter must exist (strict)."""
-    model.load_state_dict(flax_to_state_dict(flat), strict=True)
+    must be given and every given parameter must exist (strict).
+
+    A time embedding (`...time_embed`, (1, frames, C)) takes the number of
+    frames of the array being loaded: a model trained on clips of another
+    length loads as it is, and the SST resizes the embedding to each clip
+    at apply time, as the JAX package does. The parameter is resized in
+    place, so an optimiser that holds it keeps holding it."""
+    state = flax_to_state_dict(flat)
+    params = dict(model.named_parameters())
+    for name, value in state.items():
+        p = params.get(name)
+        if name.endswith("time_embed") and p is not None and p.shape != value.shape:
+            if p.shape[0] != value.shape[0] or p.shape[2:] != value.shape[2:]:
+                raise ValueError(f"{name}: cannot load {tuple(value.shape)} into "
+                                 f"{tuple(p.shape)}")
+            p.data = torch.zeros(value.shape, dtype=p.dtype, device=p.device)
+    model.load_state_dict(state, strict=True)
 
 
 def load_npz(path: str | Path) -> dict[str, np.ndarray]:

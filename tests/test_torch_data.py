@@ -92,16 +92,33 @@ def test_augmentor_matches_jax(seed):
     np.testing.assert_allclose(got_disp, want_disp, rtol=0, atol=1e-3)
 
 
+class _SeededPerSample:
+    """A JAX dataset whose augmentor draws each sample from a generator
+    seeded from (seed, epoch, index), as the port's loader seeds it."""
+
+    def __init__(self, dataset, seed):
+        self.dataset, self.seed, self.epoch = dataset, seed, 0
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, index):
+        self.dataset.augmentor.rng = np.random.default_rng((self.seed, self.epoch, int(index)))
+        return self.dataset[index]
+
+
 def test_loader_matches_jax():
-    """Two epochs of the shuffled loader over an augmented synthetic set;
-    one worker thread, so the augmentor's draws happen in one order."""
+    """Two epochs of the shuffled loader over an augmented synthetic set,
+    against the JAX loader (one worker thread) whose augmentor is reseeded
+    per sample from (seed, epoch, index) as the port's loader seeds it."""
     kw = dict(num_seqs=3, sample_len=2, height=96, width=160, seed=4)
     tl = tloader.PrefetchLoader(tds.SyntheticStereoDataset(dict(AUG, seed=9), **kw) * 2,
                                 batch_size=2, num_workers=1, seed=3)
-    jl = jloader.PrefetchLoader(jds.SyntheticStereoDataset(dict(JAX_AUG, seed=9), **kw) * 2,
-                                batch_size=2, num_workers=1, seed=3)
+    jds_seeded = _SeededPerSample(jds.SyntheticStereoDataset(dict(JAX_AUG, seed=9), **kw) * 2, 3)
+    jl = jloader.PrefetchLoader(jds_seeded, batch_size=2, num_workers=1, seed=3)
     assert len(tl) == len(jl) == 3
-    for _ in range(2):
+    for epoch in range(2):
+        jds_seeded.epoch = epoch
         batches = list(zip(tl, jl, strict=True))
         assert len(batches) == 3
         for got, want in batches:
@@ -112,6 +129,27 @@ def test_loader_matches_jax():
             _assert_images_close(got["right"], want["right"])
             np.testing.assert_allclose(got["disparity"], want["disparity"], rtol=0, atol=1e-3)
             np.testing.assert_array_equal(got["valid"], want["valid"])
+
+
+def test_loaders_of_one_seed_yield_identical_batches():
+    """Four threads augment in any order; each sample's generator comes from
+    (seed, epoch, index), so two loaders of one seed give the same batches,
+    epoch after epoch, and another seed gives others."""
+    kw = dict(num_seqs=4, sample_len=2, height=96, width=160, seed=0)
+
+    def epochs(seed):
+        loader = tloader.PrefetchLoader(tds.SyntheticStereoDataset(dict(AUG), **kw) * 2,
+                                        batch_size=2, num_workers=4, seed=seed)
+        return [list(loader) for _ in range(2)]
+
+    first, second, other = epochs(5), epochs(5), epochs(6)
+    for e in range(2):
+        assert len(first[e]) == len(second[e]) == 4
+        for a, b in zip(first[e], second[e]):
+            for key in a:
+                np.testing.assert_array_equal(a[key], b[key])
+    assert not np.array_equal(first[0][0]["left"], first[1][0]["left"])
+    assert not np.array_equal(first[0][0]["left"], other[0][0]["left"])
 
 
 def test_dataset_sample_matches_jax():

@@ -132,6 +132,35 @@ def test_bf16_forward_tracks_jax(anchor):
     assert abs(epe_port - epe_jax) <= 0.02
 
 
+def test_model_of_another_clip_length_loads_the_anchor(anchor):
+    """A model built for 3-frame clips (a training `sample_len` of 3) loads
+    the anchor's 5-frame time embedding as it is, as the JAX package does,
+    and resizes it to each clip at apply time: its forward matches the JAX
+    model's with the same parameters, and the trainer seeds from it."""
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, build_train_model
+
+    flat, tree = anchor
+    video, _ = _clip(3, 64, 128, seed=2)
+    left, right = video[None, :, 0], video[None, :, 1]
+    # flax sizes the embedding from the parameters it is given (5 frames)
+    # and resizes it to the clip at apply time
+    jm = JPPMStereo(cfg=JConfig(mixed_precision=False, force_xla_attention=True),
+                    iters=2, test_mode=True)
+    jd, ju = (np.asarray(x) for x in jax.jit(jm.apply)(tree, jnp.asarray(left),
+                                                         jnp.asarray(right)))
+    tm = tppm.PPMStereo(iters=2, mixed_precision=False, test_mode=True, num_frames=3)
+    param = tm.sst.time_embed
+    load_flax_params(tm, flat)
+    assert tm.sst.time_embed is param and tuple(param.shape) == (1, 5, 256)
+    with torch.no_grad():
+        td, tu = (x.numpy() for x in tm(torch.from_numpy(left), torch.from_numpy(right)))
+    np.testing.assert_allclose(td, jd, rtol=0, atol=DISP_TOL)
+    np.testing.assert_allclose(tu, ju, rtol=0, atol=UNC_TOL)
+    train_model = build_train_model(TrainConfig(sample_len=3, train_iters=2))
+    load_flax_params(train_model, flat)
+    assert tuple(train_model.sst.time_embed.shape) == (1, 5, 256)
+
+
 @pytest.mark.parametrize("k,n_out", [(6, 12), (5, 17)])
 def test_strict_predictor_matches_jax(anchor, k, n_out):
     """12 frames at 40 x 72 (padded to 64 x 96). Kernel 6 (stride 3, odd)

@@ -79,6 +79,28 @@ def test_cost_model():
     assert flops == pytest.approx(2.68e12, rel=1e-2)
     assert nbytes == pytest.approx(3.15e8, rel=1e-2)
     assert tpa.play_scale(128) == pytest.approx(128**-0.5 * np.log(256) / np.log(12000))
+    # a hop of the 2-way ring at 1/4: a quarter of the FLOP; bf16 q, k, v
+    # (144 MB) and the f32 state read and written (2 x 26.4 MB)
+    flops, nbytes = tpa.play_attention_carry_cost(10, 5120, 25600)
+    assert flops == pytest.approx(6.7e11, rel=1e-2)
+    assert nbytes == pytest.approx(1.97e8, rel=1e-2)
+
+
+@pytest.mark.parametrize("lk,n", [(512, 2), (700, 3), (5, 4)])
+def test_carry_hops_on_cpu_make_the_attention(rng, lk, n):
+    """n plain carry hops over K/V split in n chunks, normalised, equal the
+    plain attention (f32: 2e-5); the wrapper takes the plain version for CPU
+    tensors, returns new state tensors and counts no launch."""
+    q, k, v = (torch.from_numpy(x) for x in _inputs(rng, 2, 96, lk))
+    o, m, l = torch.zeros(2, 96, 128), torch.full((2, 96), -1e30), torch.zeros(2, 96)
+    before = tpa.play_attention_carry.launches
+    for kj, vj in zip(k.tensor_split(n, dim=1), v.tensor_split(n, dim=1)):
+        o2, m2, l2 = tpa.play_attention_carry(q, kj, vj, o, m, l, SCALE)
+        assert o2 is not o and (m <= m2).all()
+        o, m, l = o2, m2, l2
+    assert tpa.play_attention_carry.launches == before
+    want = tpa.play_attention_plain(q, k, v, SCALE)
+    np.testing.assert_allclose((o / l[..., None]).numpy(), want.numpy(), rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
@@ -195,3 +217,40 @@ def test_training_kernels_match_plain_on_card(b, lq, lk):
         assert diff.mean().item() <= 2**-7.5 * want.float().abs().mean().item()
     with pytest.raises(ValueError, match="float32"):
         tpa.play_attention_bwd_dq(q, k, v, do, lse.double(), lse, SCALE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk", [(2, 640, 3200), (3, 1000, 4999), (1, 17, 5)])
+def test_carry_kernel_matches_plain_on_card(b, lq, lk):
+    """Kernel 5 over K/V split in 2 hops, each hop against the plain hop on
+    the same incoming state at the limits chip_smoke.py states (o: 2^-7
+    max|o| + 2^-8 max(l) max|v|; m: 2^-12; l: 2^-16 max l), the state
+    updated in place; one hop normalised equals kernel 1 bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+               for n in (lq, lk, lk))
+    o = torch.zeros(b, lq, 128, device="cuda")
+    m = torch.full((b, lq), -1e30, device="cuda")
+    l = torch.zeros(b, lq, device="cuda")
+    before = tpa.play_attention_carry.launches
+    for kj, vj in zip(k.tensor_split(2, dim=1), v.tensor_split(2, dim=1)):
+        kj, vj = kj.contiguous(), vj.contiguous()
+        ro, rm, rl = tpa.play_attention_carry_plain(q, kj, vj, o, m, l, SCALE)
+        got = tpa.play_attention_carry(q, kj, vj, o, m, l, SCALE)
+        torch.cuda.synchronize()
+        assert all(g is x for g, x in zip(got, (o, m, l)))
+        o_tol = (2**-7 * ro.abs().max().item()
+                 + 2**-8 * rl.max().item() * vj.float().abs().max().item())
+        assert (o - ro).abs().max().item() <= o_tol
+        assert (m - rm).abs().max().item() <= 2**-12
+        assert (l - rl).abs().max().item() <= 2**-16 * rl.max().item()
+    assert tpa.play_attention_carry.launches == before + 2
+    o = torch.zeros(b, lq, 128, device="cuda")
+    m = torch.full((b, lq), -1e30, device="cuda")
+    l = torch.zeros(b, lq, device="cuda")
+    tpa.play_attention_carry(q, k, v, o, m, l, SCALE)
+    assert torch.equal((o * (1.0 / l)[..., None]).bfloat16(), tpa.play_attention(q, k, v, SCALE))
+    with pytest.raises(ValueError, match="float32"):
+        tpa.play_attention_carry(q, k, v, o.bfloat16(), m, l, SCALE)
