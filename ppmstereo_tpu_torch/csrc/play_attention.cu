@@ -1,21 +1,27 @@
-// Play attention forward for Hopper (sm_90a): O = softmax(scale * Q K^T) V.
+// Play attention ring hop for Hopper (sm_90a): kernel 5, one hop of the ring
+// play attention (`play_attention_carry`).
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` of
+// Replaces the Pallas TPU kernel `_flash_carry_kernel` of
 // ppmstereo_tpu/kernels/play_attention.py (reached through
-// `_play_attention_pallas`, dispatched by `play_attention`, called from
-// `PPMUpdateLoop._play` in ppmstereo_tpu/models/ppm_stereo.py). It computes
-// what that kernel computes: single head, non-causal, head dim 128, bf16
-// q/k/v, an online base-2 softmax in f32, an f32 accumulator, bf16 output,
-// keys past Lk masked. The tiling is this card's, not the TPU's.
+// `flash_attend_carry`, called per hop by
+// ppmstereo_tpu/parallel/ring_attention.py::_ring_local). Single head,
+// non-causal, head dim 128, bf16 q/k/v, an online base-2 softmax in f32. The
+// block starts from an incoming unnormalised state instead of an empty one:
+// o (B, Lq, D) f32, and m (the base-2 row max) and l (the row sum) as (B, Lq)
+// f32, one value per row (not the TPU's 128-lane tiles). It runs the key loop
+// and writes the merged state back in place, unnormalised:
+//   m' = max(m, rowmax s), alpha = exp2(m - m'),
+//   l' = alpha l + rowsum exp2(s - m'), o' = alpha o + exp2(s - m') V.
+// The caller divides o by l after the last hop. Keys past Lk are masked.
 //
-// What bounds it: at the 320x512 operating point one 1/4-stage launch is
-// 10 rows x Lq 10,240 x Lk 51,200 x D 128, i.e. 4*10240*51200*128*10 =
-// 2.7e12 FLOP against 2*(q + o) + 2*(k + v) = 2*(2*13.1M + 2*65.5M) bytes
-// ~ 315 MB. That is ~8,500 FLOP per byte, far above the card's ~295
-// bf16 FLOP/byte ridge: the kernel is compute-bound, and the logits
-// (2.1 GB of f32 per launch if written out) must never reach device memory.
+// What bounds it: a hop reads and writes the f32 state besides q, k and v: at
+// a 1/4-stage hop of the 2-way ring (10 x 5,120 x 25,600) that is 2 x 26 MB
+// against 144 MB of bf16 inputs, far below the compute bound of 6.7e11 FLOP
+// (0.68 ms at 989 TFLOP/s): it is bound by the tensor cores.
 //
-// Design (simple first version, FlashAttention-2 shape):
+// Design (simple first version, FlashAttention-2 shape; the forward kernels 1
+// and 2 moved to wgmma, TMA and warp specialisation in play_attention_fwd.cu,
+// and this hop is next to move onto that body):
 //   * one thread block per (row b, tile of BM = 128 query rows); 8 warps,
 //     each owning 16 query rows, so the softmax state of a row lives in
 //     one warp (4 lanes) and needs no shared memory or block barrier;
@@ -26,37 +32,10 @@
 //     f32 logits become the bf16 A operand of P V without leaving registers;
 //   * the scale and log2(e) are folded into one multiply; exp2 is ex2.approx;
 //   * rows past Lq and keys past Lk are zero-filled by cp.async, and keys past
-//     Lk get -inf logits; rows past Lq are not stored;
+//     Lk get -inf logits; rows past Lq are neither read nor written;
 //   * padded shared-memory rows (136 bf16) keep every fragment load free of
 //     bank conflicts.
-// wgmma, TMA and warp specialisation are left to the PR that makes it fast.
-// The kernel allocates nothing; the caller passes the output buffer.
-//
-// With a residual buffer (`lse`, training's forward) the kernel also writes
-// each row's base-2 log-sum-exp, lse = m + log2(l) with m the row's max of
-// scale*log2(e)*q.k and l its sum of exp2(. - m): one f32 per row, (B, Lq).
-// That replaces the Pallas `_flash_kernel(save_residuals=True)` (reached
-// through `_flash_fwd_res`), which writes m and l as (B, Lq, 128) lane tiles.
-// The backward kernels (play_attention_bwd.cu) recompute the normalised
-// probabilities as exp2(scale*log2(e)*q.k - lse). The output o is computed
-// by the same instructions with or without the residual.
-//
-// The carry mode (template CARRY = true, `play_attention_carry`) is one hop
-// of the ring play attention. It replaces the Pallas `_flash_carry_kernel`
-// (reached through `flash_attend_carry`, called per hop by
-// ppmstereo_tpu/parallel/ring_attention.py::_ring_local). The block starts
-// from an incoming unnormalised state instead of an empty one: o (B, Lq, D)
-// f32, and m (the base-2 row max) and l (the row sum) as (B, Lq) f32, one
-// value per row (not the TPU's 128-lane tiles). It runs the same key loop and
-// writes the merged state back in place, unnormalised:
-//   m' = max(m, rowmax s), alpha = exp2(m - m'),
-//   l' = alpha l + rowsum exp2(s - m'), o' = alpha o + exp2(s - m') V.
-// The caller divides o by l after the last hop. Kernel 1 (CARRY = false) is
-// compiled from the same source with the carry code removed at compile time,
-// so its instructions, and its output, are unchanged. A hop reads and writes
-// the f32 state besides q, k and v: at a 1/4-stage hop of the 2-way ring
-// (10 x 5,120 x 25,600) that is 2 x 26 MB against 144 MB of bf16 inputs,
-// still far below the compute bound of 6.7e11 FLOP.
+// The kernel allocates nothing; the caller passes the state buffers.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -139,17 +118,15 @@ __device__ __forceinline__ uint32_t ld_pair(const __nv_bfloat16* lo,
   return a | (b << 16);
 }
 
-// CARRY: o and lse are unused; the state (co, cm, cl) is read at the start
-// and written back, merged, at the end. Otherwise co, cm and cl are unused.
-template <bool CARRY>
+// The state (co, cm, cl) is read at the start and written back, merged, at
+// the end.
 __global__ void __launch_bounds__(NTHREADS)
-    play_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q,
-                              const __nv_bfloat16* __restrict__ k,
-                              const __nv_bfloat16* __restrict__ v,
-                              __nv_bfloat16* __restrict__ o,
-                              float* __restrict__ lse, float* __restrict__ co,
-                              float* __restrict__ cm, float* __restrict__ cl,
-                              int Lq, int Lk, float scale_log2) {
+    play_attention_carry_kernel(const __nv_bfloat16* __restrict__ q,
+                                const __nv_bfloat16* __restrict__ k,
+                                const __nv_bfloat16* __restrict__ v,
+                                float* __restrict__ co, float* __restrict__ cm,
+                                float* __restrict__ cl, int Lq, int Lk,
+                                float scale_log2) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sK = sQ + BM * LDS;      // two stages of BN rows
@@ -183,7 +160,7 @@ __global__ void __launch_bounds__(NTHREADS)
   float row_sum[2] = {0.f, 0.f};              // this lane's partial sums
   const int r0 = m0 + warp * 16 + g;
   const int r1 = r0 + 8;
-  if constexpr (CARRY) {
+  {
     // start from the incoming state: this lane's columns of o, the row max,
     // and the row sum in the partial sum of the row's first lane
     const float* cob = co + static_cast<size_t>(b) * Lq * D;
@@ -317,7 +294,7 @@ __global__ void __launch_bounds__(NTHREADS)
   l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
   l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
-  if constexpr (CARRY) {
+  {
     // the merged state, unnormalised, in place
     float* cob = co + static_cast<size_t>(b) * Lq * D;
     const size_t sb = static_cast<size_t>(b) * Lq;
@@ -343,68 +320,24 @@ __global__ void __launch_bounds__(NTHREADS)
         cl[sb + r1] = l1;
       }
     }
-    return;
-  }
-  const float inv0 = 1.f / l0;
-  const float inv1 = 1.f / l1;
-  __nv_bfloat16* ob = o + static_cast<size_t>(b) * Lq * D;
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
-    const int c = n * 8 + 2 * t;
-    if (r0 < Lq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r0) * D + c) =
-          __floats2bfloat162_rn(acc[n][0] * inv0, acc[n][1] * inv0);
-    }
-    if (r1 < Lq) {
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r1) * D + c) =
-          __floats2bfloat162_rn(acc[n][2] * inv1, acc[n][3] * inv1);
-    }
-  }
-  if (lse != nullptr && t == 0) {
-    float* lb = lse + static_cast<size_t>(b) * Lq;
-    if (r0 < Lq) lb[r0] = row_max[0] + log2f(l0);
-    if (r1 < Lq) lb[r1] = row_max[1] + log2f(l1);
   }
 }
 
-template <bool CARRY>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           float* co, float* cm, float* cl, int B, int Lq, int Lk,
-           float scale_log2, void* stream) {
+int launch(const void* q, const void* k, const void* v, float* co, float* cm,
+           float* cl, int B, int Lq, int Lk, float scale_log2, void* stream) {
   cudaError_t err = cudaFuncSetAttribute(
-      play_attention_fwd_kernel<CARRY>,
+      play_attention_carry_kernel,
       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BM - 1) / BM, B);
-  play_attention_fwd_kernel<CARRY><<<grid, NTHREADS, SMEM_BYTES,
-                                     static_cast<cudaStream_t>(stream)>>>(
+  play_attention_carry_kernel<<<grid, NTHREADS, SMEM_BYTES,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), lse,
-      co, cm, cl, Lq, Lk, scale_log2);
+      static_cast<const __nv_bfloat16*>(v), co, cm, cl, Lq, Lk, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
-
-// q (B, Lq, 128), k and v (B, Lk, 128), o (B, Lq, 128): contiguous bf16 on
-// the current device, 16-byte aligned. scale_log2 = scale * log2(e).
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
-extern "C" int play_attention_fwd(const void* q, const void* k, const void* v,
-                                  void* o, int B, int Lq, int Lk,
-                                  float scale_log2, void* stream) {
-  return launch<false>(q, k, v, o, nullptr, nullptr, nullptr, nullptr, B, Lq,
-                       Lk, scale_log2, stream);
-}
-
-// As play_attention_fwd, and writes lse (B, Lq) f32: each row's base-2
-// log-sum-exp of scale * log2(e) * q.k.
-extern "C" int play_attention_fwd_res(const void* q, const void* k,
-                                      const void* v, void* o, void* lse, int B,
-                                      int Lq, int Lk, float scale_log2,
-                                      void* stream) {
-  return launch<false>(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr,
-                       nullptr, B, Lq, Lk, scale_log2, stream);
-}
 
 // One ring hop (kernel 5): q (B, Lq, 128), k and v (B, Lk, 128) bf16; the
 // state o (B, Lq, 128), m and l (B, Lq) f32, read and overwritten with the
@@ -413,7 +346,6 @@ extern "C" int play_attention_fwd_res(const void* q, const void* k,
 extern "C" int play_attention_carry(const void* q, const void* k, const void* v,
                                     void* o, void* m, void* l, int B, int Lq,
                                     int Lk, float scale_log2, void* stream) {
-  return launch<true>(q, k, v, nullptr, nullptr, static_cast<float*>(o),
-                      static_cast<float*>(m), static_cast<float*>(l), B, Lq, Lk,
-                      scale_log2, stream);
+  return launch(q, k, v, static_cast<float*>(o), static_cast<float*>(m),
+                static_cast<float*>(l), B, Lq, Lk, scale_log2, stream);
 }

@@ -3,8 +3,9 @@
 Each source under `ppmstereo_tpu_torch/csrc/` is compiled by `nvcc` into a
 shared library with a plain C interface and loaded with `ctypes`. The
 library lands in `build/ppmstereo_tpu_torch/` at the repository root, named
-after a hash of the source and the flags, so a source is rebuilt only when
-it changed. The build writes a temporary file and renames it into place, so
+after a hash of the source, every header under `csrc/` (`*.cuh`) and the
+flags, so a source is rebuilt only when it or a header it may include
+changed. The build writes a temporary file and renames it into place, so
 an interrupted build leaves no half-written library and no lock file.
 
 Nothing here runs at import: a kernel is built the first time its wrapper
@@ -55,14 +56,23 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
+def _source_digest(src: Path) -> str:
+    """Hash of a source, every `csrc/*.cuh` (names and contents, in order)
+    and the nvcc flags: the part of a library's name that changes when any
+    of them does."""
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 def build(name: str) -> BuiltKernel:
     """Compile `csrc/<name>.cu` if needed and load it (cached per process)."""
     if name in _LOADED:
         return _LOADED[name]
     src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
+    digest = _source_digest(src)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
     log_path = lib_path.with_suffix(".log")

@@ -9,12 +9,12 @@ and its gradients. Each kernel has a plain PyTorch version beside it, which
 the wrappers use for CPU tensors only and `chip_smoke.py` holds the kernel
 against on the card:
 
-  kernel (csrc/)                          replaces (Pallas)               plain version
-  play_attention.cu, forward              `_flash_kernel`                 `play_attention_plain`
-  play_attention.cu, forward + residual   `_flash_kernel(save_residuals)` `play_attention_fwd_res_plain`
-  play_attention_bwd.cu, dq               `_flash_bwd_dq_kernel`          `play_attention_bwd_plain`
-  play_attention_bwd.cu, dk and dv        `_flash_bwd_dkv_kernel`         `play_attention_bwd_plain`
-  play_attention.cu, carry (ring hop)     `_flash_carry_kernel`           `play_attention_carry_plain`
+  kernel (csrc/)                            replaces (Pallas)               plain version
+  play_attention_fwd.cu, forward            `_flash_kernel`                 `play_attention_plain`
+  play_attention_fwd.cu, forward + residual `_flash_kernel(save_residuals)` `play_attention_fwd_res_plain`
+  play_attention_bwd.cu, dq                 `_flash_bwd_dq_kernel`          `play_attention_bwd_plain`
+  play_attention_bwd.cu, dk and dv          `_flash_bwd_dkv_kernel`         `play_attention_bwd_plain`
+  play_attention.cu, carry (ring hop)       `_flash_carry_kernel`           `play_attention_carry_plain`
 
 The plain versions are chunked over query rows with f32 logits, as the JAX
 package's `_play_attention_xla` and `_attention_bwd_xla` are. The kernels
@@ -229,7 +229,7 @@ def play_attention_fwd_res(q, k, v, scale: float):
     b, lq, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty(b, lq, dtype=torch.float32, device=q.device)
-    _launch("play_attention", "play_attention_fwd_res", q.device,
+    _launch("play_attention_fwd", "play_attention_fwd_res", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, lq, k.shape[1], scale * LOG2E)
     play_attention_fwd_res.launches += 1
@@ -324,7 +324,7 @@ def play_attention(q, k, v, scale: float):
     _check_cuda_inputs(q, k, v)
     b, lq, _ = q.shape
     out = torch.empty_like(q)
-    _launch("play_attention", "play_attention_fwd", q.device,
+    _launch("play_attention_fwd", "play_attention_fwd", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             b, lq, k.shape[1], scale * LOG2E)
     play_attention.launches += 1

@@ -225,7 +225,8 @@ def test_carry_kernel_matches_plain_on_card(b, lq, lk):
     """Kernel 5 over K/V split in 2 hops, each hop against the plain hop on
     the same incoming state at the limits chip_smoke.py states (o: 2^-7
     max|o| + 2^-8 max(l) max|v|; m: 2^-12; l: 2^-16 max l), the state
-    updated in place; one hop normalised equals kernel 1 bit for bit."""
+    updated in place; one hop normalised agrees with kernel 1 (a separate
+    kernel, which sums in another order) at kernel 1's o limits."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU form")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -251,6 +252,10 @@ def test_carry_kernel_matches_plain_on_card(b, lq, lk):
     m = torch.full((b, lq), -1e30, device="cuda")
     l = torch.zeros(b, lq, device="cuda")
     tpa.play_attention_carry(q, k, v, o, m, l, SCALE)
-    assert torch.equal((o * (1.0 / l)[..., None]).bfloat16(), tpa.play_attention(q, k, v, SCALE))
+    whole = tpa.play_attention(q, k, v, SCALE).float()
+    diff = ((o * (1.0 / l)[..., None]).bfloat16().float() - whole).abs()
+    assert diff.max().item() <= (2**-7 * whole.abs().max().item()
+                                 + 2**-8 * v.float().abs().max().item())
+    assert diff.mean().item() <= 2**-8 * whole.abs().mean().item()
     with pytest.raises(ValueError, match="float32"):
         tpa.play_attention_carry(q, k, v, o.bfloat16(), m, l, SCALE)
