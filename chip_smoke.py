@@ -9,14 +9,17 @@ it stopped):
   1. device    require a CUDA card; print its name, count, power limit
   2. build     compile every kernel library with nvcc (forward, ring hop,
                backward, lookup), one nvcc each, in parallel; require wgmma
-               (HGMMA) and TMA loads (UTMALDG) in the forward kernels' SASS
+               (HGMMA) and TMA loads (UTMALDG) in the SASS of kernels 1-4
+               and no ptxas spills in them
   3. kernels   hold each play kernel (1-5) against its plain PyTorch version
-               on the card at the main paths' shapes and two ragged ones,
+               on the card at the main paths' shapes and three ragged ones,
                each check with a max-abs and a mean-abs limit and a fault
-               reading that must fail them; kernel 5 (the ring hop) over
-               K/V split into 1, 2 and 4 hops, hop by hop and normalised
-               against kernel 1; time kernel, plain version and the library
-               call (SDPA) with CUDA events
+               reading that must fail them; kernels 3 and 4 launched twice
+               must give the same bits; kernel 5 (the ring hop) over K/V
+               split into 1, 2 and 4 hops, hop by hop and normalised against
+               kernel 1; time kernel, plain version and the library call
+               (SDPA's forward; its backward alone for kernels 3 and 4) with
+               CUDA events
   3b. lookup   kernel 6 (the pyramid lookup) against its plain version at
                the three stages' pyramids and a ragged one; times beside
                four grid_samples
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -171,62 +175,111 @@ def phase_device():
 
 
 KERNEL_LIBRARIES = ("play_attention_fwd", "play_attention", "play_attention_bwd", "corr_lookup")
-# the instructions kernels 1 and 2 must be made of: wgmma (HGMMA in SASS) and
-# TMA tile loads (UTMALDG)
-FWD_SASS_REQUIRED = ("HGMMA", "UTMALDG")
+# the instructions the Hopper kernels must be made of: wgmma (HGMMA in SASS)
+# and TMA tile loads (UTMALDG)
+SASS_REQUIRED = ("HGMMA", "UTMALDG")
+# {library: {kernel record: a fragment of its mangled name}}: the kernels
+# that must hold SASS_REQUIRED (the template flag WITH_LSE of the forward is
+# mangled as ILb0E for kernel 1 and ILb1E for kernel 2)
+HOPPER_KERNELS = {
+    "play_attention_fwd": {"play_attention_fwd": "play_attention_fwd_kernelILb0E",
+                           "play_attention_fwd_res": "play_attention_fwd_kernelILb1E"},
+    "play_attention_bwd": {"play_attention_bwd_dq": "play_attention_bwd_dq_kernel",
+                           "play_attention_bwd_dkv": "play_attention_bwd_dkv_kernel"},
+}
 
 
 def phase_build():
     """Build every kernel library at once (one nvcc each, in parallel); check
-    that the forward kernels' machine code holds wgmma and TMA loads."""
+    that the Hopper kernels' machine code holds wgmma and TMA loads and that
+    ptxas spilled nothing in them."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ppmstereo_tpu_torch.kernels import _build
 
     with ThreadPoolExecutor(len(KERNEL_LIBRARIES)) as pool:
-        built = list(pool.map(_build.build, KERNEL_LIBRARIES))
-    for name, lib in zip(KERNEL_LIBRARIES, built):
+        built = dict(zip(KERNEL_LIBRARIES, pool.map(_build.build, KERNEL_LIBRARIES)))
+    for name, lib in built.items():
         log(f"{name} built in {lib.seconds:.1f}s -> {lib.path.relative_to(REPO)}")
         for line in lib.log.splitlines():
-            if any(w in line for w in ("registers", "spill", "smem", "warning", "setmaxnreg")):
+            if any(w in line for w in ("registers", "spill", "smem", "warning", "setmaxnreg",
+                                       "Function properties")):
                 log(f"  nvcc: {line.strip()}")
-    sass = forward_sass_counts(built[0].path)
-    log(f"play_attention_fwd SASS: {sass}")
-    return {name: lib.seconds for name, lib in zip(KERNEL_LIBRARIES, built)}, sass
+    sass = {}
+    for library, kernels in HOPPER_KERNELS.items():
+        found = library_sass_counts(built[library].path, kernels)
+        spills = ptxas_spills(built[library].log, kernels)
+        for record, counts in found.items():
+            sass[record] = dict(counts, spill_bytes=spills[record])
+        log(f"{library} SASS and ptxas spill bytes: {[sass[r] for r in kernels]}")
+    return {name: lib.seconds for name, lib in built.items()}, sass
 
 
-def forward_sass_counts(lib_path) -> dict:
-    """Count the FWD_SASS_REQUIRED instructions in each forward kernel of the
-    library (cuobjdump --dump-sass); raise unless there are two kernels (with
-    and without lse) and each holds every one of them."""
+def library_sass_counts(lib_path, kernels: dict) -> dict:
+    """`sass_counts` of the library's `cuobjdump --dump-sass`."""
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     dump = subprocess.run([cuobjdump, "--dump-sass", str(lib_path)], capture_output=True,
                           text=True, timeout=120, check=True).stdout
+    return sass_counts(dump, kernels)
+
+
+def sass_counts(dump: str, kernels: dict) -> dict:
+    """Count the SASS_REQUIRED instructions in each function of a
+    `cuobjdump --dump-sass` text; return {record: counts} for `kernels`
+    ({record: a fragment of the function's mangled name}). Raise unless each
+    record matches exactly one function and that function holds every one of
+    the instructions."""
     counts, name = {}, None
     for line in dump.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            counts[name] = dict.fromkeys(FWD_SASS_REQUIRED, 0)
+            counts[name] = dict.fromkeys(SASS_REQUIRED, 0)
         elif name is not None:
-            for op in FWD_SASS_REQUIRED:
+            for op in SASS_REQUIRED:
                 counts[name][op] += f" {op}" in line
-    # the template flag WITH_LSE is mangled as Lb0 (kernel 1) or Lb1 (kernel 2)
-    kernels = {("play_attention_fwd_res" if "Lb1" in n else "play_attention_fwd"): c
-               for n, c in counts.items() if "play_attention_fwd_kernel" in n}
-    if len(kernels) != 2 or not all(all(c.values()) for c in kernels.values()):
-        raise RuntimeError(f"the forward kernels' SASS lacks {FWD_SASS_REQUIRED}: {counts}")
-    return kernels
+    found = {}
+    for record, fragment in kernels.items():
+        matches = [n for n in counts if fragment in n]
+        if len(matches) != 1:
+            raise RuntimeError(f"{record}: {len(matches)} functions named like {fragment!r} "
+                               f"in the SASS: {list(counts)}")
+        found[record] = counts[matches[0]]
+        if not all(found[record].values()):
+            raise RuntimeError(f"{record}'s SASS lacks one of {SASS_REQUIRED}: {found[record]}")
+    return found
+
+
+def ptxas_spills(log_text: str, kernels: dict) -> dict:
+    """{record: spill store bytes + spill load bytes} from nvcc's
+    `-Xptxas -v` output (the "Function properties for <name>" line and the
+    line after it) for `kernels` as in `sass_counts`. Raise when a record
+    has no such lines or spills."""
+    lines = log_text.splitlines()
+    spills = {}
+    for record, fragment in kernels.items():
+        at = [i for i, line in enumerate(lines)
+              if "Function properties for" in line and fragment in line]
+        found = [re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", lines[i + 1])
+                 for i in at if i + 1 < len(lines)]
+        if len(found) != 1 or found[0] is None:
+            raise RuntimeError(f"{record}: no ptxas spill line for {fragment!r}")
+        spills[record] = int(found[0].group(1)) + int(found[0].group(2))
+        if spills[record]:
+            raise RuntimeError(f"{record}: ptxas spilled {spills[record]} bytes")
+    return spills
 
 
 # (label, rows B, Lq, Lk): the play shapes of a 320x512 window of 10 frames
 # (Lq = (H/s)(W/s) tokens per frame, Lk = top_k * Lq), which are also those
-# of a training batch of 2 clips of 5 frames; plus two ragged cases
+# of a training batch of 2 clips of 5 frames; plus three ragged cases, the
+# last with a second row b whose lse and Di start off a 16-byte boundary
 PLAY_SHAPES = (
     ("1/4", 10, 80 * 128, 5 * 80 * 128),
     ("1/8", 10, 40 * 64, 5 * 40 * 64),
     ("1/16", 10, 20 * 32, 5 * 20 * 32),
     ("unaligned", 3, 1000, 4999),
     ("tiny", 1, 17, 5),
+    ("odd", 2, 65, 129),
 )
 
 
@@ -339,20 +392,38 @@ def phase_kernels(smi: str):
             checks[name] = _agreement(label, f"play_attention_bwd {name}", g, r, f,
                                       3 * 2**-8 * r.float().abs().max().item(),
                                       2**-7.5 * r.float().abs().mean().item())
-        rows["bwd_dq"].append(dict(shape, checks={"dq": checks["dq"]}))
-        rows["bwd_dkv"].append(dict(shape, checks={"dk": checks["dk"], "dv": checks["dv"]}))
+        # no atomics: a second launch gives the same bits
+        again = pa.play_attention_bwd(q, k, v, got_res, lse, do, scale)
+        equal = {name: bool(torch.equal(g, h)) for name, g, h in zip(("dq", "dk", "dv"),
+                                                                     (dq, dk, dv), again)}
+        log(f"  play_attention_bwd {label}: a second launch bit-equal {equal}")
+        if not all(equal.values()):
+            raise RuntimeError(f"kernels 3 and 4 are not deterministic at {label}: {equal}")
+        del again
+        rows["bwd_dq"].append(dict(shape, bit_equal_rerun=equal["dq"], checks={"dq": checks["dq"]}))
+        rows["bwd_dkv"].append(dict(shape, bit_equal_rerun=equal["dk"] and equal["dv"],
+                                    checks={"dk": checks["dk"], "dv": checks["dv"]}))
 
         rows["carry"].append(dict(shape, checks=_carry_checks(label, q, k, v, got, scale)))
 
         # times (CUDA events): kernel, plain version, library call
         big = lq * lk > 1e8
         reps, plain_reps = (3, 1) if big else (20, 5)
-        di = (do.float() * got_res.float()).sum(dim=-1)
+        di = pa.play_attention_di(got_res, do)
         qg, kg, vg = (x[:, None].detach().requires_grad_() for x in (q, k, v))
 
         def sdpa_fwd_bwd():
             out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
             out.backward(do[:, None])
+
+        # SDPA's backward alone, the same function as kernels 3 and 4
+        # together: one forward, then its backward over the reps (the
+        # gradients dropped before each, so none is accumulated)
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, scale=scale)
+
+        def sdpa_bwd():
+            qg.grad = kg.grad = vg.grad = None
+            sdpa_out.backward(do[:, None], retain_graph=True)
 
         times = dict(
             fwd=cuda_time_ms(lambda: pa.play_attention(q, k, v, scale), reps),
@@ -368,24 +439,28 @@ def phase_kernels(smi: str):
             sdpa=cuda_time_ms(lambda: F.scaled_dot_product_attention(
                 q[:, None], k[:, None], v[:, None], scale=scale), reps),
             sdpa_fwd_bwd=cuda_time_ms(sdpa_fwd_bwd, reps),
+            sdpa_bwd=cuda_time_ms(sdpa_bwd, reps),
+            di=cuda_time_ms(lambda: pa.play_attention_di(got_res, do), reps),
         )
         f_flops, f_bytes = pa.play_attention_cost(b, lq, lk)
         f_bound, f_by = _bound(f_flops, f_bytes)
         # the forward's lse output: 4 more bytes per row
         r_bound, r_by = _bound(f_flops, f_bytes + 4.0 * b * lq)
-        # dq needs S, dP and dS K (3 products) and reads q, dO, k, v, lse, Di;
-        # dk/dv needs S, dP, P^T dO and dS^T Q (4) and writes dk and dv
-        elems_q, elems_k = b * lq * 128, b * lk * 128
-        dq_bound, dq_by = _bound(6.0 * b * lq * lk * 128, 2.0 * (3 * elems_q + 2 * elems_k) + 8.0 * b * lq)
-        dkv_bound, dkv_by = _bound(8.0 * b * lq * lk * 128, 2.0 * (2 * elems_q + 4 * elems_k) + 8.0 * b * lq)
+        dq_flops, dq_bytes = pa.play_attention_bwd_dq_cost(b, lq, lk)
+        dkv_flops, dkv_bytes = pa.play_attention_bwd_dkv_cost(b, lq, lk)
+        dq_bound, dq_by = _bound(dq_flops, dq_bytes)
+        dkv_bound, dkv_by = _bound(dkv_flops, dkv_bytes)
         for name, ms, plain_ms, lib_ms, bound, by in (
                 ("fwd", times["fwd"], times["fwd_plain"], times["sdpa"], f_bound, f_by),
                 ("fwd_res", times["fwd_res"], times["fwd_res_plain"], times["sdpa"], r_bound, r_by),
-                ("bwd_dq", times["bwd_dq"], times["bwd_plain"], times["sdpa_fwd_bwd"], dq_bound, dq_by),
-                ("bwd_dkv", times["bwd_dkv"], times["bwd_plain"], times["sdpa_fwd_bwd"], dkv_bound,
+                ("bwd_dq", times["bwd_dq"], times["bwd_plain"], times["sdpa_bwd"], dq_bound, dq_by),
+                ("bwd_dkv", times["bwd_dkv"], times["bwd_plain"], times["sdpa_bwd"], dkv_bound,
                  dkv_by)):
             rows[name][-1].update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound,
                                   bound_by=by)
+        for name, flops in (("bwd_dq", dq_flops), ("bwd_dkv", dkv_flops)):
+            rows[name][-1].update(tflops=flops / rows[name][-1]["ms"] / 1e9,
+                                  sdpa_fwd_bwd_ms=times["sdpa_fwd_bwd"], di_ms=times["di"])
         carry_times = _carry_times(label, q, k, v, scale, smi)
         rows["carry"][-1]["checks"].update(carry_times.pop("hop_checks"))
         rows["carry"][-1].update(carry_times)
@@ -395,7 +470,7 @@ def phase_kernels(smi: str):
             f"fwd {f_flops / times['fwd'] / 1e9:.1f} TFLOP/s, bwd (dq + dk/dv, 10 B Lq Lk D) "
             f"{2.5 * f_flops / (times['bwd_dq'] + times['bwd_dkv']) / 1e9:.1f} TFLOP/s")
         del q, k, v, do, got, got_res, lse, ref, ref_lse, fault, dq, dk, dv, rq, rk, rv, fq, fk, fv
-        del qg, kg, vg, di
+        del qg, kg, vg, di, sdpa_out
         torch.cuda.empty_cache()
     return rows
 
@@ -1254,6 +1329,7 @@ def phase_profile(main_run: dict, smi: str):
 
 
 TRAIN_DIR = REPO / "build" / "chip_smoke_train"
+DI_RANGE = "play_attention_di"  # the profiler range around Di in play_attention_bwd
 # kernel-name fragments of a train step's device time
 _TRAIN_GROUPS = (
     ("play forward with residual (kernel 2)", ("play_attention_fwd_kernel",)),
@@ -1403,12 +1479,26 @@ def _profile_train_step(state, batch: dict, smi: str):
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     fwd_ms, bwd_ms, opt_ms = (events[i].elapsed_time(events[i + 1]) for i in range(3))
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # the range "play_attention_di" (kernels/play_attention.py) may also come
+    # back as a device-side annotation: it is no kernel, so it is not summed
+    kernels = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.key != DI_RANGE]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    # Di's device time: the kernels launched inside its range (on the host
+    # side event), else the span of its device-side annotation
+    di_host = [e for e in averages if e.key == DI_RANGE
+               and e.device_type != torch.autograd.DeviceType.CUDA]
+    di_device = [e for e in averages if e.key == DI_RANGE
+                 and e.device_type == torch.autograd.DeviceType.CUDA]
+    di_ms = max([e.device_time_total for e in di_host] or [0.0]) / 1e3
+    di_span_ms = max([e.self_device_time_total for e in di_device] or [0.0]) / 1e3
     log(f"profiled train step on {smi}: wall {wall_ms:.1f} ms (profiler on); forward + loss "
         f"{fwd_ms:.1f} ms, backward (with the recomputed iterations) {bwd_ms:.1f} ms, "
         f"optimiser {opt_ms:.1f} ms; device busy {device_ms:.1f} ms "
-        f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches")
+        f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
+        f"Di (rowsum(dO o O), {sum(e.count for e in di_host)} calls) {di_ms:.2f} ms of device time "
+        f"in its kernels, {di_span_ms:.2f} ms as a device-side span")
     if device_ms == 0:
         log("profile: the profiler saw no device time; kernel split not measured")
         return dict(wall_ms=wall_ms, forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms)
@@ -1424,7 +1514,7 @@ def _profile_train_step(state, batch: dict, smi: str):
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         log(f"  top kernel {e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:90]}")
     return dict(wall_ms=wall_ms, forward_ms=fwd_ms, backward_ms=bwd_ms, optimizer_ms=opt_ms,
-                device_ms=device_ms, groups=groups)
+                device_ms=device_ms, groups=groups, di_ms=di_ms, di_span_ms=di_span_ms)
 
 
 # one record per kernel: (row key, record name, source, the TPU kernel it replaces)
@@ -1510,7 +1600,7 @@ def main() -> None:
                                          "play_attention_bwd", "play_attention_bwd",
                                          "play_attention", "corr_lookup")):
         record["build_s"] = build_s[library]
-    for record in records[:2]:
+    for record in records[:4]:
         record["sass"] = sass[record["name"]]
     records[4]["ring"] = ring_run["readings"]
     log(f"total {time.perf_counter() - _T0:.1f}s")

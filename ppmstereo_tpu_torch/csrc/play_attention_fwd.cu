@@ -90,13 +90,13 @@
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda.
 
-#include <cuda.h>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int D = 128;                    // head dim
 constexpr int BM = 128;                   // query rows per block
@@ -106,7 +106,6 @@ constexpr int NTHREADS = 384;             // producer + two consumer warpgroups
 constexpr int CONSUMERS = 256;
 constexpr int TILE_BYTES = 128 * D * 2;   // a 128-row bf16 tile of Q, K or V
 constexpr int BOX_BYTES = TILE_BYTES / 2; // one 64-column box of it
-constexpr int BOX_COLS = 64;
 constexpr int Q_OFF = 0;
 constexpr int K_OFF = TILE_BYTES;
 constexpr int V_OFF = K_OFF + STAGES * TILE_BYTES;
@@ -114,190 +113,12 @@ constexpr int BAR_OFF = V_OFF + STAGES * TILE_BYTES;
 constexpr int ABORT_OFF = BAR_OFF + 8 * (1 + 4 * STAGES);  // the block's abort flag
 constexpr int SMEM_BYTES = ABORT_OFF + 8 + 1024;            // + alignment slack
 constexpr uint64_t STAGE_STEP = TILE_BYTES >> 4;  // a stage, in descriptor address units
-constexpr unsigned long long WAIT_LIMIT_NS = 2000000000ull;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// ---------------------------------------------------------------- mbarrier
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of parity `parity` of the barrier has completed. A
-// wait that has not completed after WAIT_LIMIT_NS sets the block's abort flag
-// (a shared word) and returns, and every later wait of the block returns at
-// once: the block runs to its end and writes NaN (see the epilogue), so a
-// wrong phase fails the checks instead of hanging the card. (Not __trap():
-// its no-return path keeps ptxas from giving the consumers the registers
-// that setmaxnreg raised, and they spill.)
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity, uint32_t abort_flag) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity)) {
-    uint32_t aborted;
-    asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(aborted) : "r"(abort_flag));
-    if (aborted) return;
-    if (global_ns() - t0 > WAIT_LIMIT_NS) {
-      asm volatile("st.volatile.shared.u32 [%0], %1;\n" ::"r"(abort_flag), "r"(1u));
-      return;
-    }
-  }
-}
-
-// ---------------------------------------------------------------- TMA
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
 
 // A 128 x 128 tile: rows [row, row + 128) of row b, as two 64-column boxes.
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int row, int b) {
   mbar_expect_tx(bar, TILE_BYTES);
-  tma_load_3d(dst, map, bar, 0, row, b);
-  tma_load_3d(dst + BOX_BYTES, map, bar, BOX_COLS, row, b);
-}
-
-// ---------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor, 128-byte swizzle (layout type 1); the
-// byte offsets in 16-byte units.
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo_bytes,
-                                               uint32_t sbo_bytes) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo_bytes >> 4) << 16) |
-         (static_cast<uint64_t>(sbo_bytes >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Pin registers at this point of the program: the compiler may not move their
-// reads or writes across it (nor across the wgmma instructions and waits, which are
-// volatile asm too).
-__device__ __forceinline__ void pin(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-__device__ __forceinline__ void pin(uint32_t (&p)[32]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+r"(p[i])::"memory");
-}
-
-#define WGMMA_D64                                                                        \
-  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "    \
-  "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, " \
-  "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, " \
-  "%52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
-
-#define WGMMA_ACC64(d)                                                                   \
-  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),    \
-      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),         \
-      "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),      \
-      "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),      \
-      "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),      \
-      "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),      \
-      "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),      \
-      "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),      \
-      "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),      \
-      "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),      \
-      "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-
-// d (64 x 128, f32) = [d +] A B, A and B from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a, uint64_t desc_b,
-                                         int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
-      ", %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : WGMMA_ACC64(d)
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
-}
-
-// d (64 x 128, f32) += A B, A (64 x 16 bf16) from registers, B from shared
-// memory, MN-major (the transpose flag).
-__device__ __forceinline__ void wgmma_rs_tb(float (&d)[64], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 " WGMMA_D64
-      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : WGMMA_ACC64(d)
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(1));
-}
-
-// S = Q K^T over D = 128: eight k16 steps, four in each 64-column box.
-__device__ __forceinline__ void mma_qk(float (&s)[64], uint64_t desc_q, uint64_t desc_k) {
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const uint64_t step = (kk / 4) * (BOX_BYTES >> 4) + (kk % 4) * (32 >> 4);
-    wgmma_ss(s, desc_q + step, desc_k + step, kk > 0);
-  }
-}
-
-// O += P V over the tile's 128 keys: eight k16 steps of 16 keys (2 KB of V).
-__device__ __forceinline__ void mma_pv(float (&o)[64], const uint32_t (&p)[32],
-                                         uint64_t desc_v) {
-#pragma unroll
-  for (int kk = 0; kk < BN / 16; ++kk) {
-    wgmma_rs_tb(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3],
-                desc_v + kk * ((16 * BOX_COLS * 2) >> 4));
-  }
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  tma_tile_boxes<128>(dst, map, bar, row, b);
 }
 
 // The online softmax of one tile for this thread's two rows (g and g + 8 of
@@ -339,11 +160,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
-__device__ __forceinline__ void pack_p(uint32_t (&p)[32], const float (&s)[64]) {
-#pragma unroll
-  for (int i = 0; i < 32; ++i) p[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
-}
-
 template <bool WITH_LSE>
 __global__ void __launch_bounds__(NTHREADS, 1)
     play_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -352,9 +168,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
                               __nv_bfloat16* __restrict__ o_out, float* __restrict__ lse,
                               int Lq, int Lk, float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
-  // the swizzled tiles need 1024-byte alignment (descriptor base_offset 0)
-  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
-  const uint32_t s_base = smem_addr(smem);
+  const uint32_t s_base = smem_addr(aligned_smem(smem_raw));
   const uint32_t bar_q = s_base + BAR_OFF;
   const uint32_t bar_k_full = bar_q + 8;
   const uint32_t bar_k_empty = bar_k_full + 8 * STAGES;
@@ -386,12 +200,9 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     // ---------------- producer: one thread starts every load
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&q_map))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&k_map))
-                   : "memory");
-      asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(&v_map))
-                   : "memory");
+      prefetch_map(&q_map);
+      prefetch_map(&k_map);
+      prefetch_map(&v_map);
       tma_tile(s_base + Q_OFF, &q_map, bar_q, m0, b);
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % STAGES;
@@ -433,13 +244,13 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     mbar_wait(bar_k_full, 0, abort_flag);
     pin(s);
     wgmma_fence();
-    mma_qk(s, desc_q, desc_k);
+    mma_rows_dot_rows(s, desc_q, BOX_BYTES, desc_k, BOX_BYTES);
     wgmma_commit();
     wgmma_wait<0>();
     pin(s);
     mbar_arrive(bar_k_empty);
     softmax_tile(s, m, l, alpha, 0, Lk, t, scale_log2);
-    pack_p(p, s);
+    pack_acc<64>(p, s);
 
     for (int j = 1; j < ntiles; ++j) {
       const int st = j % STAGES, prev = (j - 1) % STAGES;
@@ -448,10 +259,10 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       pin(o);
       pin(p);
       wgmma_fence();
-      mma_qk(s, desc_q, desc_k + st * STAGE_STEP);  // S_j
+      mma_rows_dot_rows(s, desc_q, BOX_BYTES, desc_k + st * STAGE_STEP, BOX_BYTES);  // S_j
       wgmma_commit();
       mbar_wait(bar_v_full + 8 * prev, ((j - 1) / STAGES) & 1, abort_flag);
-      mma_pv(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}
+      mma_regs_times_rows(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}
       wgmma_commit();
       wgmma_wait<1>();  // S_j is done; P_{j-1} V_{j-1} may still run
       pin(s);
@@ -463,7 +274,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       mbar_arrive(bar_v_empty + 8 * prev);
 #pragma unroll
       for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
-      pack_p(p, s);
+      pack_acc<64>(p, s);
     }
 
     const int last = (ntiles - 1) % STAGES;
@@ -471,7 +282,7 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     pin(o);
     pin(p);
     wgmma_fence();
-    mma_pv(o, p, desc_v + last * STAGE_STEP);
+    mma_regs_times_rows(o, p, desc_v + last * STAGE_STEP);
     wgmma_commit();
     wgmma_wait<0>();
     pin(o);
@@ -484,9 +295,8 @@ __global__ void __launch_bounds__(NTHREADS, 1)
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
       inv[r] = 1.f / l[r];
     }
-    uint32_t aborted;  // a wait timed out: write NaN, so no check can pass
-    asm volatile("ld.volatile.shared.u32 %0, [%1];\n" : "=r"(aborted) : "r"(abort_flag));
-    if (aborted) inv[0] = inv[1] = NAN;
+    // a wait timed out: write NaN, so no check can pass
+    if (block_aborted(abort_flag)) inv[0] = inv[1] = NAN;
     __nv_bfloat16* ob = o_out + static_cast<size_t>(b) * Lq * D;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -504,53 +314,12 @@ __global__ void __launch_bounds__(NTHREADS, 1)
   }
 }
 
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave,
-                                   CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                   CUtensorMapFloatOOBfill);
-
-EncodeTiledFn encode_tiled() {
-  static EncodeTiledFn fn = nullptr;
-  if (fn == nullptr) {
-    void* ptr = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
-#endif
-    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiledFn>(ptr);
-  }
-  return fn;
-}
-
-// The 3-D map (D, L, B) of a contiguous (B, L, 128) bf16 tensor, in boxes of
-// 64 columns x 128 rows x 1, 128-byte swizzled; reads past L are zeros.
-bool make_map(CUtensorMap* map, const void* base, int L, int B) {
-  const EncodeTiledFn encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(L),
-                              static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(D) * 2,
-                                 static_cast<cuuint64_t>(L) * D * 2};
-  const cuuint32_t box[3] = {BOX_COLS, 128, 1};
-  const cuuint32_t elem_strides[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <bool WITH_LSE>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq,
            int Lk, float scale_log2, void* stream) {
   CUtensorMap q_map, k_map, v_map;
-  if (!make_map(&q_map, q, Lq, B) || !make_map(&k_map, k, Lk, B) ||
-      !make_map(&v_map, v, Lk, B)) {
+  if (!make_map(&q_map, q, Lq, B, BM) || !make_map(&k_map, k, Lk, B, BN) ||
+      !make_map(&v_map, v, Lk, B, BN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaError_t err = cudaFuncSetAttribute(play_attention_fwd_kernel<WITH_LSE>,

@@ -271,10 +271,19 @@ def play_attention_bwd_dkv(q, k, v, do, lse, di, scale: float):
     return dk, dv
 
 
+def play_attention_di(o, do):
+    """di = rowsum(dO o O) in f32, (B, Lq): a torch op, as the JAX package
+    computes it in XLA. One f32 copy of o is made and multiplied by dO in
+    place (bf16 times bf16 is exact in f32), so the only temporary is one
+    (B, Lq, D) f32 tensor."""
+    return o.float().mul_(do).sum(dim=-1)
+
+
 def play_attention_bwd(q, k, v, o, lse, do, scale: float):
-    """(dq, dk, dv) on CUDA tensors: di = rowsum(dO o O) in f32 (a torch op,
-    as the JAX package computes it in XLA), then kernels 3 and 4."""
-    di = (do.float() * o.float()).sum(dim=-1)
+    """(dq, dk, dv) on CUDA tensors: di (`play_attention_di`, under the
+    profiler label "play_attention_di"), then kernels 3 and 4."""
+    with torch.profiler.record_function("play_attention_di"):
+        di = play_attention_di(o, do)
     dq = play_attention_bwd_dq(q, k, v, do, lse, di, scale)
     dk, dv = play_attention_bwd_dkv(q, k, v, do, lse, di, scale)
     return dq, dk, dv
@@ -380,6 +389,26 @@ def play_attention_bwd_cost(b: int, lq: int, lk: int, d: int = HEAD_DIM) -> tupl
     and Di each moved once."""
     flops = 10.0 * b * lq * lk * d
     nbytes = 2.0 * b * d * (3 * lq + 4 * lk) + 8.0 * b * lq
+    return flops, nbytes
+
+
+def play_attention_bwd_dq_cost(b: int, lq: int, lk: int,
+                               d: int = HEAD_DIM) -> tuple[float, float]:
+    """(FLOP, bytes) kernel 3 needs: three products of 2*Lq*Lk*D each (S, dP,
+    dS K) per row; bf16 q, dO, k, v read once and dq written once, and f32
+    lse and Di read once."""
+    flops = 6.0 * b * lq * lk * d
+    nbytes = 2.0 * b * d * (3 * lq + 2 * lk) + 8.0 * b * lq
+    return flops, nbytes
+
+
+def play_attention_bwd_dkv_cost(b: int, lq: int, lk: int,
+                                d: int = HEAD_DIM) -> tuple[float, float]:
+    """(FLOP, bytes) kernel 4 needs: four products (S^T, dP^T, P^T dO,
+    dS^T Q) per row; bf16 q, dO, k, v read once and dk, dv written once, and
+    f32 lse and Di read once."""
+    flops = 8.0 * b * lq * lk * d
+    nbytes = 2.0 * b * d * (2 * lq + 4 * lk) + 8.0 * b * lq
     return flops, nbytes
 
 

@@ -3,8 +3,9 @@ card): every `extern "C"` function of `ppmstereo_tpu_torch/csrc/*.cu` is
 bound with a ctypes argument list of its own length, with a pointer type for
 every pointer and the stream (a missing or short list passes each as a
 32-bit int and cuts 64-bit pointers); every wrapper's launch names a library
-that defines the function; and a library's name changes when a `csrc/*.cuh`
-header does."""
+that defines the function; a library's name changes when a `csrc/*.cuh`
+header does; and chip_smoke.py's readers of the machine code and of ptxas's
+report (HGMMA and UTMALDG in each Hopper kernel, no spills) on canned text."""
 
 import ctypes
 import re
@@ -102,3 +103,94 @@ def test_build_name_follows_headers(tmp_path, monkeypatch):
     (csrc / "extra.cuh").write_text("// a new header\n")
     _build._LOADED.clear()
     assert _build.build("k").path not in (first, second) and len(compiled) == 3
+
+
+# A short `cuobjdump --dump-sass` text of a library with two kernels (the
+# layout the tool prints: a "Function :" line, then one instruction a line)
+_SASS = """
+	code for sm_90a
+		Function : _ZN54_GLOBAL__N__e38b9198_21_play_attention_bwd_cu_a5c87dce28play_attention_bwd_dq_kernelE14CUtensorMap_st
+	.headerflags	@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_64BIT_ADDRESS EF_CUDA_SM90"
+        /*0000*/                   LDC R1, c[0x0][0x28] ;
+        /*0010*/                   UTMALDG.3D [UR8], [UR4] ;
+        /*0020*/                   UTMALDG.3D [UR16], [UR4] ;
+        /*0030*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT ;
+        /*0040*/                   EXIT ;
+		Function : _ZN54_GLOBAL__N__e38b9198_21_play_attention_bwd_cu_a5c87dce29play_attention_bwd_dkv_kernelE14CUtensorMap_st
+        /*0000*/                   UTMALDG.1D [UR8], [UR4] ;
+        /*0010*/                   HGMMA.64x128x16.F32.BF16 R24, R120, gdesc[UR8], R24 ;
+        /*0020*/                   HGMMA.64x128x16.F32.BF16 R24, R124, gdesc[UR12], R24, gsb0 ;
+        /*0030*/                   EXIT ;
+"""
+_KERNELS = {"bwd_dq": "play_attention_bwd_dq_kernel", "bwd_dkv": "play_attention_bwd_dkv_kernel"}
+
+
+def test_sass_counts_reads_each_kernels_instructions():
+    import chip_smoke
+
+    assert chip_smoke.sass_counts(_SASS, _KERNELS) == {
+        "bwd_dq": {"HGMMA": 1, "UTMALDG": 2}, "bwd_dkv": {"HGMMA": 2, "UTMALDG": 1}}
+
+
+@pytest.mark.parametrize("case", ["no_hgmma", "no_utmaldg", "missing_kernel", "two_matches"])
+def test_sass_counts_raises(case):
+    """A kernel without wgmma or TMA loads, a kernel the dump lacks, and a
+    fragment that names two functions each fail the check."""
+    import chip_smoke
+
+    dump, kernels = _SASS, dict(_KERNELS)
+    if case == "no_hgmma":
+        dump = dump.replace("HGMMA.64x64x16", "HMMA.16816")
+    elif case == "no_utmaldg":
+        dump = dump.replace("UTMALDG.1D", "LDG.E.128")
+    elif case == "missing_kernel":
+        kernels["fwd"] = "play_attention_fwd_kernelILb0E"
+    else:
+        kernels["both"] = "play_attention_bwd_d"
+    with pytest.raises(RuntimeError, match="lacks|functions named"):
+        chip_smoke.sass_counts(dump, kernels)
+
+
+_PTXAS = """ptxas info    : Compiling entry function '_ZN_x_28play_attention_bwd_dq_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN_x_28play_attention_bwd_dq_kernelE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 496 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN_x_29play_attention_bwd_dkv_kernelE' for 'sm_90a'
+ptxas info    : Function properties for _ZN_x_29play_attention_bwd_dkv_kernelE
+    8 bytes stack frame, 240 bytes spill stores, 240 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 624 bytes cmem[0]
+"""
+
+
+def test_ptxas_spills_reads_each_kernel_and_raises_on_a_spill():
+    import chip_smoke
+
+    assert chip_smoke.ptxas_spills(_PTXAS, {"bwd_dq": _KERNELS["bwd_dq"]}) == {"bwd_dq": 0}
+    with pytest.raises(RuntimeError, match="spilled 480 bytes"):
+        chip_smoke.ptxas_spills(_PTXAS, _KERNELS)
+    with pytest.raises(RuntimeError, match="no ptxas spill line"):
+        chip_smoke.ptxas_spills(_PTXAS, {"fwd": "play_attention_fwd_kernelILb0E"})
+
+
+def _variant_cases():
+    import sys
+
+    sys.path.insert(0, str(KERNELS.parents[1] / "tools"))
+    import bwd_variants
+    import fwd_variants
+
+    return [(tool, name) for tool in (fwd_variants, bwd_variants) for name in tool.VARIANTS]
+
+
+@pytest.mark.parametrize("tool,name", _variant_cases(),
+                         ids=lambda x: x if isinstance(x, str) else x.__name__)
+def test_kernel_variants_apply_to_the_sources(tool, name):
+    """Every edit of tools/fwd_variants.py and tools/bwd_variants.py finds
+    its text exactly once in the kernel source or a header as they stand,
+    so the tools still build what they name."""
+    import fwd_variants
+
+    files = fwd_variants.edited_sources(name, tool.SOURCE, tool.VARIANTS)
+    assert tool.SOURCE.name in files and "hopper.cuh" in files
+    unedited = fwd_variants.edited_sources("committed", tool.SOURCE, tool.VARIANTS)
+    assert (files == unedited) == (not tool.VARIANTS[name])

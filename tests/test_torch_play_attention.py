@@ -166,7 +166,10 @@ def test_fwd_res_and_bwd_plain_match_flash_interpret(rng, lq, lk, block_q, block
 def test_autograd_on_cpu_uses_the_plain_versions(rng):
     """With inputs that require a gradient, play_attention goes through the
     autograd Function: on the CPU the plain forward and the plain backward,
-    and no kernel launch is counted."""
+    and no kernel launch is counted. The card's path computes Di with
+    `play_attention_di`, which must equal rowsum(dO o O) taken on two f32
+    copies (f32 tolerance: the products of bf16 values are exact in f32,
+    only the sum's order could differ)."""
     q, k, v, g = (torch.from_numpy(x) for x in _grad_inputs(rng, 2, 40, 150))
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     counters = (tpa.play_attention, tpa.play_attention_fwd_res,
@@ -181,6 +184,10 @@ def test_autograd_on_cpu_uses_the_plain_versions(rng):
         torch.testing.assert_close(leaf.grad, want, rtol=0, atol=0)
     with torch.no_grad():  # inference takes the forward without residual
         assert not tpa.play_attention(*leaves, SCALE).requires_grad
+    o16, g16 = out.detach().bfloat16(), g.bfloat16()
+    di = tpa.play_attention_di(o16, g16)
+    assert di.dtype == torch.float32 and di.shape == (2, 40)
+    torch.testing.assert_close(di, (g16.float() * o16.float()).sum(dim=-1), rtol=1.3e-6, atol=1e-5)
 
 
 def test_bwd_cost_model():
@@ -188,13 +195,31 @@ def test_bwd_cost_model():
     assert flops / 989e12 * 1e3 == pytest.approx(6.8, rel=1e-2)
 
 
+def test_bwd_kernel_cost_models():
+    """Kernel 3 (dq: S, dP, dS K) and kernel 4 (dk/dv: S, dP, P^T dO,
+    dS^T Q) at the 1/4 training shape: 4.07 and 5.43 ms at 989 TFLOP/s,
+    7 products between them against the backward's 5; bytes: every bf16
+    input read once, each output written once, lse and Di read once."""
+    b, lq, lk, d = 10, 10240, 51200, 128
+    dq_flops, dq_bytes = tpa.play_attention_bwd_dq_cost(b, lq, lk)
+    dkv_flops, dkv_bytes = tpa.play_attention_bwd_dkv_cost(b, lq, lk)
+    assert dq_flops / 989e12 * 1e3 == pytest.approx(4.071, rel=1e-3)
+    assert dkv_flops / 989e12 * 1e3 == pytest.approx(5.428, rel=1e-3)
+    assert dq_flops + dkv_flops == pytest.approx(7 / 5 * tpa.play_attention_bwd_cost(b, lq, lk)[0])
+    assert dq_bytes == 2 * b * d * (3 * lq + 2 * lk) + 8 * b * lq  # q, dO, dq; k, v; lse, Di
+    assert dkv_bytes == 2 * b * d * (2 * lq + 4 * lk) + 8 * b * lq  # q, dO; k, v, dk, dv
+    assert max(dq_flops / 989e12, dq_bytes / 3.35e12) == dq_flops / 989e12  # bound by operations
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,lq,lk", [(2, 640, 3200), (3, 1000, 4999), (1, 17, 5)])
+@pytest.mark.parametrize("b,lq,lk", [(2, 640, 3200), (3, 1000, 4999), (2, 65, 129), (1, 17, 5)])
 def test_training_kernels_match_plain_on_card(b, lq, lk):
     """Kernels 2-4 against the plain versions at the limits chip_smoke.py
     states: kernel 2's o equals kernel 1's bit for bit, its lse within
     2^-12; dq, dk, dv within 1.5 bf16 ulps at the largest |value| and
-    2^-7.5 of the mean |value| on average."""
+    2^-7.5 of the mean |value| on average, and a second call gives the
+    same bits (no atomics). 2 x 65 x 129 leaves one query past a 64-row
+    tile and one key past a 128-key tile."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU form")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -215,6 +240,8 @@ def test_training_kernels_match_plain_on_card(b, lq, lk):
         diff = (got.float() - want.float()).abs()
         assert diff.max().item() <= 3 * 2**-8 * want.float().abs().max().item()
         assert diff.mean().item() <= 2**-7.5 * want.float().abs().mean().item()
+    again = tpa.play_attention_bwd(q, k, v, out, lse, do, SCALE)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
     with pytest.raises(ValueError, match="float32"):
         tpa.play_attention_bwd_dq(q, k, v, do, lse.double(), lse, SCALE)
 

@@ -3,10 +3,11 @@
 
     python3 tools/fwd_variants.py [VARIANT ...]
 
-Each variant is `ppmstereo_tpu_torch/csrc/play_attention_fwd.cu` with a few
-text edits (VARIANTS below; no argument runs them all, "committed" is the
-source as it stands). Every variant is compiled by its own nvcc, all at once,
-with the flags of `kernels/_build.py`, into `build/fwd_variants/`; the script
+Each variant is `ppmstereo_tpu_torch/csrc/play_attention_fwd.cu` and the
+headers it includes (`csrc/*.cuh`) with a few text edits (VARIANTS below; no
+argument runs them all, "committed" is the source as it stands). Every
+variant is compiled by its own nvcc, all at once, with the flags of
+`kernels/_build.py`, into `build/fwd_variants/<variant>/`; the script
 prints each one's ptxas lines (registers, spills, C75xx remarks) and the
 highest register, HGMMA, UTMALDG and local-memory instructions of its SASS,
 loads it with ctypes and holds its kernels 1 and 2 against the plain version
@@ -60,19 +61,19 @@ VARIANTS = {
          "template <bool WITH_LSE>\n__global__"),
         ("    float alpha[2];\n",
          "    float alpha[2];\n    const int c = wg - 1;\n    if (c == 1) turn_pass(0);\n"),
-        ("    pin(s);\n    wgmma_fence();\n    mma_qk(s, desc_q, desc_k);\n    wgmma_commit();\n",
-         "    turn_wait(c);\n    pin(s);\n    wgmma_fence();\n    mma_qk(s, desc_q, desc_k);\n"
+        ("    pin(s);\n    wgmma_fence();\n    mma_rows_dot_rows(s, desc_q, BOX_BYTES, desc_k, BOX_BYTES);\n    wgmma_commit();\n",
+         "    turn_wait(c);\n    pin(s);\n    wgmma_fence();\n    mma_rows_dot_rows(s, desc_q, BOX_BYTES, desc_k, BOX_BYTES);\n"
          "    wgmma_commit();\n    turn_pass(1 - c);\n"),
         ("      pin(s);\n      pin(o);\n      pin(p);\n      wgmma_fence();\n",
          "      turn_wait(c);\n      pin(s);\n      pin(o);\n      pin(p);\n      wgmma_fence();\n"),
-        ("      mma_pv(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}\n"
+        ("      mma_regs_times_rows(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}\n"
          "      wgmma_commit();\n",
-         "      mma_pv(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}\n"
+         "      mma_regs_times_rows(o, p, desc_v + prev * STAGE_STEP);  // O += P_{j-1} V_{j-1}\n"
          "      wgmma_commit();\n      turn_pass(1 - c);\n"),
-        ("    pin(o);\n    pin(p);\n    wgmma_fence();\n    mma_pv(o, p, desc_v + last * STAGE_STEP);\n"
+        ("    pin(o);\n    pin(p);\n    wgmma_fence();\n    mma_regs_times_rows(o, p, desc_v + last * STAGE_STEP);\n"
          "    wgmma_commit();\n",
          "    turn_wait(c);\n    pin(o);\n    pin(p);\n    wgmma_fence();\n"
-         "    mma_pv(o, p, desc_v + last * STAGE_STEP);\n    wgmma_commit();\n"
+         "    mma_regs_times_rows(o, p, desc_v + last * STAGE_STEP);\n    wgmma_commit();\n"
          "    if (c == 0) turn_pass(1);\n")],
 }
 # (label, rows B, Lq, Lk): chip_smoke.py's PLAY_SHAPES
@@ -82,19 +83,36 @@ SHAPES = (
     ("1/16", 10, 20 * 32, 5 * 20 * 32),
     ("unaligned", 3, 1000, 4999),
     ("tiny", 1, 17, 5),
+    ("odd", 2, 65, 129),
 )
 TIMED = ("1/4", "1/8", "1/16")
 
 
-def compile_variant(name: str) -> dict:
-    src = SOURCE.read_text()
-    for old, new in VARIANTS[name]:
-        if src.count(old) != 1:
-            raise ValueError(f"variant {name}: the edit's text is not found once in {SOURCE.name}")
-        src = src.replace(old, new)
-    path = OUT / f"{name}.cu"
-    path.write_text(src)
-    lib = OUT / f"lib{name}.so"
+def edited_sources(name: str, source: Path = SOURCE, variants: dict = VARIANTS) -> dict:
+    """{file name: text} of `source` and every csrc/*.cuh header with the
+    variant's edits applied, each to the one file that holds its text once."""
+    files = {f.name: f.read_text() for f in [source, *sorted(_build.CSRC.glob("*.cuh"))]}
+    for old, new in variants[name]:
+        holders = [f for f, text in files.items() if text.count(old) == 1]
+        if len(holders) != 1 or sum(text.count(old) for text in files.values()) != 1:
+            raise ValueError(f"variant {name}: the edit's text is not found once in "
+                             f"{source.name} and the headers")
+        files[holders[0]] = files[holders[0]].replace(old, new)
+    return files
+
+
+def compile_variant(name: str, source: Path = SOURCE, variants: dict = VARIANTS,
+                    out: Path = OUT) -> dict:
+    """Write the variant's `edited_sources` into out/<name>/, compile its
+    copy of `source` with the flags of kernels/_build.py and read its ptxas
+    lines and SASS."""
+    folder = out / name
+    folder.mkdir(parents=True, exist_ok=True)
+    files = edited_sources(name, source, variants)
+    for fname, text in files.items():
+        (folder / fname).write_text(text)
+    path = folder / source.name
+    lib = folder / f"lib{name}.so"
     proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(lib), str(path)],
                           capture_output=True, text=True, timeout=_build.BUILD_TIMEOUT_S)
     if proc.returncode != 0:
