@@ -7,22 +7,26 @@ Phases, each between timestamped progress lines (so a cut run shows where
 it stopped):
 
   1. device    require a CUDA card; print its name, count, power limit
-  2. build     compile every kernel library with nvcc (forward, ring hop,
-               backward, lookup), one nvcc each, in parallel; require wgmma
-               (HGMMA) and TMA loads (UTMALDG) in the SASS of kernels 1-4
-               and no ptxas spills in them
+  2. build     compile every kernel library with nvcc (forward and ring
+               hop, backward, lookup), one nvcc each, in parallel; require
+               wgmma (HGMMA) and TMA loads (UTMALDG) in the SASS of kernels
+               1-5 and no ptxas spills in them; print kernel 6's registers
+               and spills
   3. kernels   hold each play kernel (1-5) against its plain PyTorch version
                on the card at the main paths' shapes and three ragged ones,
                each check with a max-abs and a mean-abs limit and a fault
-               reading that must fail them; kernels 3 and 4 launched twice
-               must give the same bits; kernel 5 (the ring hop) over K/V
-               split into 1, 2 and 4 hops, hop by hop and normalised against
-               kernel 1; time kernel, plain version and the library call
-               (SDPA's forward; its backward alone for kernels 3 and 4) with
-               CUDA events
+               reading that must fail them; kernels 3, 4 and 5 launched
+               twice must give the same bits; kernel 5 (the ring hop) over
+               K/V split into 1, 2 and 4 hops, hop by hop and normalised
+               against kernel 1, and at the 2-way ring's hop shape from the
+               empty state and from a second hop's; time kernel, plain
+               version and the library call (SDPA's forward; its backward
+               alone for kernels 3 and 4) with CUDA events
   3b. lookup   kernel 6 (the pyramid lookup) against its plain version at
-               the three stages' pyramids and a ragged one; times beside
-               four grid_samples
+               the three stages' pyramids and a ragged one, each in f32 and
+               bf16 with f32 and bf16 output, bit-equal required (and
+               within a few-ulp limit a fault fails); times beside four
+               grid_samples, device times with the L2 warm and flushed
   4. small parity  the whole CUDA inference path against the port's CPU path
                on a small clip in f32 (the CPU path is the one the tests
                hold against the JAX package)
@@ -34,15 +38,19 @@ it stopped):
                window 10, 10 iterations, through the port's `model_zoo`
                predictor with the committed anchor weights, on a 20-frame
                synthetic clip with known disparity; check shape, finiteness,
-               accuracy and the forward kernel's launch count
+               accuracy and the launch counts of kernels 1 and 6; one
+               steady window again with the plain lookup patched in, whose
+               disparity must equal the kernel's bit for bit
   7. profile   one more 10-frame window under torch.profiler: device time
-               by layer and the device's busy share
+               by layer, kernel 6's launches and the device's busy share
   7b. ring     the main path again in 2 processes on the one card, its play
                steps as the ring play attention (kernel 5) over a gloo group
-               staged through the host; kernel 5's launches, the disparity
-               and EPE against the main run; each ringed play step of the
-               clip's first window against the unsharded play on the same
-               inputs; and the small clip in f32 through the ring against
+               staged through the host; kernel 5's and kernel 6's
+               launches, the disparity and EPE against the main run; one
+               steady window under torch.profiler for kernel 5's device
+               time per window and rank; each
+               ringed play step of the clip's first window against the
+               unsharded play on the same inputs; and the small clip in f32 through the ring against
                the card's single-process output; a dropped carry as the
                fault of both
   8. train     training: `train()` at the shipped TrainConfig() (320x512,
@@ -174,16 +182,18 @@ def phase_device():
     return name, count, smi
 
 
-KERNEL_LIBRARIES = ("play_attention_fwd", "play_attention", "play_attention_bwd", "corr_lookup")
+KERNEL_LIBRARIES = ("play_attention_fwd", "play_attention_bwd", "corr_lookup")
 # the instructions the Hopper kernels must be made of: wgmma (HGMMA in SASS)
 # and TMA tile loads (UTMALDG)
 SASS_REQUIRED = ("HGMMA", "UTMALDG")
 # {library: {kernel record: a fragment of its mangled name}}: the kernels
-# that must hold SASS_REQUIRED (the template flag WITH_LSE of the forward is
-# mangled as ILb0E for kernel 1 and ILb1E for kernel 2)
+# that must hold SASS_REQUIRED (the forward template's mode is mangled as
+# ILi0E for kernel 1, ILi1E for kernel 2 and ILi2E for kernel 5). Kernel 6,
+# a gather, needs neither; its registers and spills are printed.
 HOPPER_KERNELS = {
-    "play_attention_fwd": {"play_attention_fwd": "play_attention_fwd_kernelILb0E",
-                           "play_attention_fwd_res": "play_attention_fwd_kernelILb1E"},
+    "play_attention_fwd": {"play_attention_fwd": "play_attention_fwd_kernelILi0E",
+                           "play_attention_fwd_res": "play_attention_fwd_kernelILi1E",
+                           "play_attention_carry": "play_attention_fwd_kernelILi2E"},
     "play_attention_bwd": {"play_attention_bwd_dq": "play_attention_bwd_dq_kernel",
                            "play_attention_bwd_dkv": "play_attention_bwd_dkv_kernel"},
 }
@@ -192,7 +202,7 @@ HOPPER_KERNELS = {
 def phase_build():
     """Build every kernel library at once (one nvcc each, in parallel); check
     that the Hopper kernels' machine code holds wgmma and TMA loads and that
-    ptxas spilled nothing in them."""
+    ptxas spilled nothing in them; read kernel 6's registers and spills."""
     from concurrent.futures import ThreadPoolExecutor
 
     from ppmstereo_tpu_torch.kernels import _build
@@ -212,7 +222,30 @@ def phase_build():
         for record, counts in found.items():
             sass[record] = dict(counts, spill_bytes=spills[record])
         log(f"{library} SASS and ptxas spill bytes: {[sass[r] for r in kernels]}")
+    sass["corr_lookup"] = ptxas_resources(built["corr_lookup"].log, "corr_lookup_kernel")
+    log(f"corr_lookup (kernel 6) ptxas, per instance (pyramid, output dtype): "
+        f"{sass['corr_lookup']}")
     return {name: lib.seconds for name, lib in built.items()}, sass
+
+
+def ptxas_resources(log_text: str, fragment: str) -> dict:
+    """{function: {"registers": n, "spill_bytes": n}} from nvcc's
+    `-Xptxas -v` output for every function whose mangled name holds
+    `fragment` (no check: a reading)."""
+    found, name = {}, None
+    for line in log_text.splitlines():
+        if "Function properties for" in line:
+            name = line.split("Function properties for")[1].strip()
+            if fragment not in name:
+                name = None
+        elif name is not None and "spill stores" in line:
+            got = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            found.setdefault(name, {})["spill_bytes"] = int(got.group(1)) + int(got.group(2))
+        elif name is not None and "Used" in line and "registers" in line:
+            found.setdefault(name, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    return found
 
 
 def library_sass_counts(lib_path, kernels: dict) -> dict:
@@ -573,10 +606,10 @@ def _carry_times(label: str, q, k, v, scale, smi: str) -> dict:
     """Kernel 5 at the hop shape of the 2-way ring (each rank's half of the
     query rows over its half of the bank): held against the plain hop from
     the empty state and from the state a hop over the other half of the
-    bank left (the ring's second hop, where the fault applies); then
-    kernel, plain hop, SDPA's forward on the same q/k/v (the nearest
-    library call, not the same function: it normalises and keeps no
-    state), and the bound."""
+    bank left (the ring's second hop, where the fault applies); two
+    launches from that state must give the same bits; then kernel, plain
+    hop, SDPA's forward on the same q/k/v (the nearest library call, not
+    the same function: it normalises and keeps no state), and the bound."""
     import torch
     import torch.nn.functional as F
 
@@ -591,8 +624,17 @@ def _carry_times(label: str, q, k, v, scale, smi: str) -> dict:
     incoming = pa.play_attention_carry_plain(qh, k[:, hk:2 * hk].contiguous(),
                                              v[:, hk:2 * hk].contiguous(), *_empty_state(b, hq),
                                              scale)
-    second, _ = _hop_check(f"{at}, from the other half's state", qh, kh, vh, incoming, scale,
-                           empty=False)
+    second, _ = _hop_check(f"{at}, from the other half's state", qh, kh, vh,
+                           tuple(x.clone() for x in incoming), scale, empty=False)
+    # no atomics: a second launch from the same state gives the same bits
+    runs = [pa.play_attention_carry(qh, kh, vh, *(x.clone() for x in incoming), scale)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    equal = all(torch.equal(x, y) for x, y in zip(*runs))
+    log(f"  play_attention_carry {at}: a second launch bit-equal {equal}")
+    if not equal:
+        raise RuntimeError(f"kernel 5 is not deterministic at {label}")
+    del runs
     checks = {**{f"{name} hop shape, empty state": c for name, c in checks.items()},
               **{f"{name} hop shape, second hop": c for name, c in second.items()}}
     o, m, l = _empty_state(b, hq)
@@ -610,7 +652,8 @@ def _carry_times(label: str, q, k, v, scale, smi: str) -> dict:
         f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, SDPA forward "
         f"{lib_ms:.3f} ms, bound {bound:.3f} ms ({by})")
     return dict(hop_shape=dict(B=b, Lq=hq, Lk=hk), hop_checks=checks, ms=ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9)
+                library_ms=lib_ms, bound_ms=bound, bound_by=by, tflops=flops / ms / 1e9,
+                bit_equal_rerun=equal)
 
 
 # (label, N, H, W1, W2): the pyramids of the three stages of a 320x512
@@ -624,10 +667,12 @@ LOOKUP_SHAPES = (
 )
 
 
-def _device_ms(fn, name: str, reps: int) -> float:
+def _device_ms(fn, name: str, reps: int, flush=None) -> float:
     """The device time of one launch of the kernels whose name holds `name`
     over `reps` calls of fn, by torch.profiler (the CUDA-event time of a
-    short kernel also holds the host's time to issue each call)."""
+    short kernel also holds the host's time to issue each call). With
+    `flush` (a device buffer larger than the L2), the buffer is overwritten
+    before each call, so fn finds the L2 cold; the fill is not counted."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -635,6 +680,8 @@ def _device_ms(fn, name: str, reps: int) -> float:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
+            if flush is not None:
+                flush.add_(1)
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if name in e.key
@@ -674,62 +721,99 @@ def _grid_sample_lookup(pyramid, grids):
             for corr, g in zip(pyramid, grids)]
 
 
+# (pyramid dtype, output dtype) of kernel 6, the main path's first (its
+# record's times are this pair's at 1/4)
+LOOKUP_DTYPES = (("bfloat16", "bfloat16"), ("float32", "float32"), ("bfloat16", "float32"),
+                 ("float32", "bfloat16"))
+
+
 def phase_lookup(smi: str):
-    """Kernel 6 against the port's lookup (its plain version) at the three
-    stages' pyramids and a ragged one, with a fault reading (the fractional
-    weights swapped); times of kernel, plain lookup and four grid_samples."""
+    """Kernel 6 against the port's lookup (its plain version, cast to the
+    output dtype) at the three stages' pyramids and a ragged one, for each
+    pair of LOOKUP_DTYPES, with a fault reading (the fractional weights
+    swapped); times of kernel, plain lookup and four grid_samples (on the
+    pyramid widened to f32), device times with the L2 warm (the same inputs
+    call after call) and flushed, and the bound from the bytes at the real
+    element sizes."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
 
+    def us(x):
+        return "not measured" if x is None else f"{x * 1e3:.1f} us"
+
     gen = torch.Generator(device="cuda").manual_seed(1)
+    flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, five times the L2
     rows = []
     for label, n, h, w1, w2 in LOOKUP_SHAPES:
         f1 = torch.randn(n * h, 1, w1, 64, generator=gen, device="cuda")
         f2 = torch.randn(n * h, 1, w2, 64, generator=gen, device="cuda")
-        pyramid = [c.reshape(n, h, w1, -1).contiguous() for c in build_corr_pyramid(f1, f2, 4)]
+        pyr32 = [c.reshape(n, h, w1, -1).contiguous() for c in build_corr_pyramid(f1, f2, 4)]
         # coordinates as the model makes them (pixel column minus a
         # disparity), some past either end of the row
         cols = torch.arange(w1, device="cuda", dtype=torch.float32)
         coords = cols - torch.rand(n, h, w1, generator=gen, device="cuda") * 0.4 * w2
         if label == "ragged":
             coords = torch.rand(n, h, w1, generator=gen, device="cuda") * (w2 + 24) - 12
-        got = kl.corr_lookup_kernel(pyramid, coords)
-        want = corr_lookup(pyramid, coords)
-        fault = _lookup_fault(pyramid, coords)
-        torch.cuda.synchronize()
-        # f32: the kernel repeats the plain version's operations in its order
-        # with round-to-nearest intrinsics; limit a few f32 ulps: 2^-21 of the
-        # largest |value| and 2^-23 of the mean |value|
-        check = _agreement(label, "corr_lookup", got, want, fault,
-                           2**-21 * want.abs().max().item(), 2**-23 * want.abs().mean().item())
-        grids = []
-        for lvl, corr in enumerate(pyramid):
-            w = corr.shape[-1]
-            pos = (coords / 2.0**lvl).reshape(-1, 1, 1) + torch.arange(-4, 5, device="cuda")
-            gx = 2.0 * pos / (w - 1) - 1.0
-            grids.append(torch.stack([gx, torch.zeros_like(gx)], dim=-1))
-        lib = torch.cat([x.reshape(n, h, w1, 9) for x in _grid_sample_lookup(pyramid, grids)], -1)
-        lib_err = (lib - want).abs().max().item()
-        ms = cuda_time_ms(lambda: kl.corr_lookup_kernel(pyramid, coords), 50)
-        plain_ms = cuda_time_ms(lambda: corr_lookup(pyramid, coords), 20)
-        lib_ms = cuda_time_ms(lambda: _grid_sample_lookup(pyramid, grids), 20)
-        device_ms = _device_ms(lambda: kl.corr_lookup_kernel(pyramid, coords), "corr_lookup", 20)
-        nbytes = kl.corr_lookup_bytes(pyramid, coords)
-        bound, by = _bound(0.0, nbytes)
-        pyr_bytes = 4.0 * sum(c.numel() for c in pyramid)
-        log(f"corr_lookup {label} N={n} H={h} W1={w1} W2={w2} on {smi}: kernel {ms * 1e3:.1f} us "
-            f"({nbytes / ms / 1e6:.1f} GB/s of the {nbytes / 1e6:.2f} MB it must move; device "
-            f"time {'not measured' if device_ms is None else f'{device_ms * 1e3:.1f} us'}), plain "
-            f"{plain_ms * 1e3:.1f} us, 4 x grid_sample {lib_ms * 1e3:.1f} us (max |diff| "
-            f"{lib_err:.2e} from the plain lookup), bound {bound * 1e3:.2f} us ({by}); the whole "
-            f"pyramid is {pyr_bytes / 1e6:.1f} MB ({pyr_bytes / H100_BYTES_PER_S * 1e6:.1f} us)")
-        rows.append(dict(shape=label, N=n, H=h, W1=w1, W2=w2, checks={"out": check}, ms=ms,
-                         plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                         gb_per_s=nbytes / ms / 1e6, device_ms=device_ms,
-                         grid_sample_max_abs_diff=lib_err))
-        del f1, f2, pyramid, got, want, fault, grids, lib
+        for pyr_name, out_name in LOOKUP_DTYPES:
+            pyr_dtype, out_dtype = getattr(torch, pyr_name), getattr(torch, out_name)
+            # the bf16 pyramid as the model stores it: the f32 volume rounded
+            pyramid = [c.to(pyr_dtype) for c in pyr32]
+            got = kl.corr_lookup_kernel(pyramid, coords, out_dtype=out_dtype)
+            want = corr_lookup(pyramid, coords).to(out_dtype)
+            fault = _lookup_fault(pyramid, coords).to(out_dtype)
+            torch.cuda.synchronize()
+            at = f"{label} {pyr_name} -> {out_name}"
+            # the kernel repeats the plain version's operations in its order
+            # with round-to-nearest intrinsics and casts as .to() does: a few
+            # f32 ulps at most, 2^-21 of the largest |value| and 2^-23 of the
+            # mean |value| (a bf16 output one ulp off reads 2^-9 or more)
+            check = _agreement(at, "corr_lookup", got, want, fault,
+                               2**-21 * want.float().abs().max().item(),
+                               2**-23 * want.float().abs().mean().item())
+            check["bit_equal"] = bool(torch.equal(got, want))
+            if not check["bit_equal"]:
+                raise RuntimeError(f"corr_lookup at {at} is within its limits but not bit-equal "
+                                   "to the plain lookup")
+            # grid_sample takes its grid in its input's dtype, and a bf16 grid
+            # cannot hold the positions (it reads up to ~0.7 off): the four
+            # calls run on the pyramid's values widened to f32 beforehand
+            wide, grids = [c.float() for c in pyramid], []
+            for lvl, corr in enumerate(pyramid):
+                w = corr.shape[-1]
+                pos = (coords / 2.0**lvl).reshape(-1, 1, 1) + torch.arange(-4, 5, device="cuda")
+                gx = 2.0 * pos / (w - 1) - 1.0
+                grids.append(torch.stack([gx, torch.zeros_like(gx)], dim=-1))
+            lib = torch.cat([x.reshape(n, h, w1, 9) for x in _grid_sample_lookup(wide, grids)], -1)
+            lib_err = (lib.float() - want.float()).abs().max().item()
+
+            def kernel():
+                return kl.corr_lookup_kernel(pyramid, coords, out_dtype=out_dtype)
+
+            ms = cuda_time_ms(kernel, 50)
+            plain_ms = cuda_time_ms(lambda: corr_lookup(pyramid, coords).to(out_dtype), 20)
+            lib_ms = cuda_time_ms(lambda: _grid_sample_lookup(wide, grids), 20)
+            device_ms = _device_ms(kernel, "corr_lookup", 20)
+            cold_ms = _device_ms(kernel, "corr_lookup", 20, flush=flush)
+            nbytes = kl.corr_lookup_bytes(pyramid, coords, out_dtype=out_dtype)
+            bound, by = _bound(0.0, nbytes)
+            pyr_bytes = float(sum(c.numel() * c.element_size() for c in pyramid))
+            log(f"corr_lookup {at} N={n} H={h} W1={w1} W2={w2} on {smi}: kernel "
+                f"{ms * 1e3:.1f} us per call ({nbytes / ms / 1e6:.1f} GB/s of the "
+                f"{nbytes / 1e6:.2f} MB it must move); device time {us(device_ms)} with the L2 "
+                f"warm, {us(cold_ms)} flushed; plain {plain_ms * 1e3:.1f} us, 4 x grid_sample "
+                f"{lib_ms * 1e3:.1f} us (max |diff| {lib_err:.2e} from the plain lookup), bound "
+                f"{bound * 1e3:.2f} us ({by}); the whole pyramid is {pyr_bytes / 1e6:.1f} MB "
+                f"({pyr_bytes / H100_BYTES_PER_S * 1e6:.1f} us); bit-equal {check['bit_equal']}")
+            rows.append(dict(shape=at, N=n, H=h, W1=w1, W2=w2, checks={"out": check}, ms=ms,
+                             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                             gb_per_s=nbytes / ms / 1e6, device_ms=device_ms,
+                             device_cold_ms=cold_ms, grid_sample_max_abs_diff=lib_err))
+            del pyramid, wide, got, want, fault, grids, lib
+        del f1, f2, pyr32
+    del flush
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -991,9 +1075,11 @@ def phase_main(smi: str):
     if disp.shape != expected_shape or not np.isfinite(disp).all():
         raise RuntimeError(f"disparity has shape {disp.shape} (want {expected_shape}) "
                            f"or non-finite values")
+    # kernels 1 and 6: one launch each per iteration
     expected = LAUNCHES_PER_WINDOW * len(window_s)
-    if launches != expected:
-        raise RuntimeError(f"play_attention launched {launches} times, expected {expected}")
+    if launches != expected or lookup_launches != expected:
+        raise RuntimeError(f"play_attention launched {launches} times and corr_lookup "
+                           f"{lookup_launches}, expected {expected} each")
     epe = float(np.abs(disp[..., 0] - gt).mean())
     if not epe <= EPE_BOUND_PX:
         raise RuntimeError(f"EPE {epe:.3f} px exceeds {EPE_BOUND_PX} px")
@@ -1001,13 +1087,53 @@ def phase_main(smi: str):
     log(f"main path {CLIP_FRAMES}x{HEIGHT}x{WIDTH}, window {WINDOW}, iters {ITERS}: "
         f"{len(window_s)} windows, seconds per window {[round(s, 3) for s in window_s]} "
         f"(after the first: mean {sum(steady) / len(steady):.3f}s), "
-        f"peak memory {peak_gb:.2f} GB, play launches {launches} "
-        f"({LAUNCHES_PER_WINDOW} per window), lookup kernel launches {lookup_launches} (off the "
-        f"path: the model runs ops/corr.py::corr_lookup), EPE {epe:.3f} px on {smi}")
+        f"peak memory {peak_gb:.2f} GB, play launches {launches} and lookup launches "
+        f"{lookup_launches} ({LAUNCHES_PER_WINDOW} per window each), EPE {epe:.3f} px on {smi}")
     pred.predictor.window_fn = window_fn
+    plain_lookup = _window_with_plain_lookup(pred, video, smi)
     return dict(launches=launches, lookup_launches=lookup_launches, window_s=window_s,
-                peak_gb=peak_gb, epe=epe,
+                peak_gb=peak_gb, epe=epe, plain_lookup=plain_lookup,
                 pred=pred, video=video, disparity=disp, gt=gt)
+
+
+def _window_with_plain_lookup(pred, video, smi: str) -> dict:
+    """One steady window (frames 5-14) through kernel 6, then with the plain
+    lookup (ops/corr.py::corr_lookup cast to the model's dtype) patched into
+    the model in its place, then through kernel 6 again: the disparities
+    must be equal bit for bit (the kernel's bf16 features are the plain
+    lookup's, rounded alike)."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.models import ppm_stereo
+    from ppmstereo_tpu_torch.ops.corr import corr_lookup
+
+    clip = torch.from_numpy(video[5:5 + WINDOW]).cuda()
+    run = pred.predictor._run_window
+    outs, launches = {}, {}
+    for name in ("kernel", "plain", "kernel again"):
+        kl.corr_lookup_kernel.launches = 0
+        if name == "plain":
+            ppm_stereo.corr_lookup_kernel = (
+                lambda pyramid, x, radius, out_dtype: corr_lookup(pyramid, x, radius).to(out_dtype))
+        try:
+            outs[name] = run(clip[:, 0], clip[:, 1])[0]
+        finally:
+            ppm_stereo.corr_lookup_kernel = kl.corr_lookup_kernel
+        torch.cuda.synchronize()
+        launches[name] = kl.corr_lookup_kernel.launches
+    diff = (outs["kernel"] - outs["plain"]).abs().max().item()
+    equal = bool(torch.equal(outs["kernel"], outs["plain"]))
+    rerun = bool(torch.equal(outs["kernel"], outs["kernel again"]))
+    log(f"one steady window through kernel 6 and with the plain lookup on {smi}: disparity "
+        f"bit-equal {equal} (max |diff| {diff:.3e} px); kernel 6 launches {launches}; the "
+        f"kernel's run repeated bit-equal {rerun}")
+    if launches != {"kernel": LAUNCHES_PER_WINDOW, "plain": 0, "kernel again": LAUNCHES_PER_WINDOW}:
+        raise RuntimeError(f"kernel 6 launches per window {launches}")
+    if not equal:
+        raise RuntimeError(f"the window's disparity through kernel 6 differs from the plain "
+                           f"lookup's by up to {diff:.3e} px")
+    return dict(bit_equal=equal, max_abs_diff=diff, rerun_bit_equal=rerun)
 
 
 # the space-sharded path: RING_RANKS processes on the one card, one gloo
@@ -1130,6 +1256,7 @@ def _ring_child(rank: int, world: int, video, fault_frames: int, small_left, sma
                   messages=ra.shift.messages, bytes=ra.shift.bytes)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     pred.predictor.window_fn = window_fn
+    carry_window = _profiled_carry_window(pred, video)
 
     plays = {"sound": [], "fault": []}
     replay_windows: list = []  # the clip's first frames: a window and its tail
@@ -1164,7 +1291,48 @@ def _ring_child(rank: int, world: int, video, fault_frames: int, small_left, sma
     return dict(disparity=out["disparity"], fault=fault, plays=plays,
                 replay_windows=len(replay_windows), window_s=window_s,
                 seconds=seconds, counts=counts, peak_gb=peak_gb, small=small,
+                carry_window=carry_window,
                 staged=ra.host_staged(mesh.groups["space"], torch.device("cuda")))
+
+
+CARRY_KERNEL = "play_attention_fwd_kernel<2>"  # kernel 5's instance, as the profiler names it
+
+
+def kernel_device_ms(events, fragment: str) -> dict:
+    """The device time and launches of the kernels whose name holds
+    `fragment` among profiler `events` (`key_averages()`); device_ms is None
+    when no event of the device was recorded at all (not measured), and the
+    function raises when there were some but none of these kernels."""
+    import torch
+
+    on_device = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    hits = [e for e in on_device if fragment in e.key]
+    if on_device and not hits:
+        raise RuntimeError(f"the profiler recorded {len(on_device)} device kernels, none of them "
+                           f"{fragment}")
+    return dict(kernels=sum(e.count for e in hits),
+                device_ms=sum(e.self_device_time_total for e in hits) / 1e3 if hits else None)
+
+
+def _profiled_carry_window(pred, video) -> dict:
+    """One steady window of the ring's predictor again under
+    torch.profiler, kernel 5's count set to 0 just before: its launches and
+    device time in that window on this rank. Every rank runs it (a ring
+    needs them all); the ranks time-share the card, so a hop may wait
+    behind the other rank's work inside its measured time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    frames = torch.from_numpy(video[5:5 + WINDOW]).cuda()
+    torch.cuda.synchronize()
+    pa.play_attention_carry.launches = 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pred.predictor._run_window(frames[:, 0], frames[:, 1])
+        torch.cuda.synchronize()
+    return dict(launches=pa.play_attention_carry.launches,
+                **kernel_device_ms(prof.key_averages(), CARRY_KERNEL))
 
 
 def _play_shares(calls: list, worst) -> dict:
@@ -1197,6 +1365,7 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
     keep = WINDOW - window_trim_bounds(0, WINDOW, WINDOW, WINDOW // 2)[1]
     n_windows = len(main_run["window_s"])
     want_carry = RING_RANKS * LAUNCHES_PER_WINDOW * n_windows
+    want_lookup = LAUNCHES_PER_WINDOW * n_windows  # every rank runs the whole window
     # one 1/4-stage message: q bf16, o f32, m and l f32 of this rank's rows
     rows_q = WINDOW * (HEIGHT // 4 // RING_RANKS) * (WIDTH // 4)
     quarter_bytes = rows_q * (128 * 2 + 128 * 4 + 8)
@@ -1221,6 +1390,7 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
                  fault_first_window_epe=float(np.abs(fault[:keep, ..., 0] - gt[:keep]).mean()),
                  plays=plays, window_s=res["window_s"],
                  seconds=res["seconds"], peak_gb=res["peak_gb"], counts=c,
+                 carry_window=res["carry_window"],
                  bytes_per_hop=c["bytes"] / max(c["messages"], 1))
         readings.append(r)
         log(f"ring rank {rank} of {RING_RANKS} on one card ({smi}), transport "
@@ -1228,7 +1398,8 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
             f"{[round(x, 3) for x in res['window_s']]} s, {res['seconds']:.2f} s in the "
             f"predictor, peak {res['peak_gb']:.2f} GB; launches kernel 5 "
             f"{c['play_attention_carry']} (expected {want_carry}), kernel 1 "
-            f"{c['play_attention_fwd']} (expected 0); {c['messages']} messages, "
+            f"{c['play_attention_fwd']} (expected 0), kernel 6 {c['corr_lookup']} (expected "
+            f"{want_lookup}); {c['messages']} messages, "
             f"{c['bytes'] / 1e9:.3f} GB sent, {r['bytes_per_hop'] / 1e6:.2f} MB per hop on average "
             f"({quarter_bytes / 1e6:.2f} MB at 1/4); max |disparity - single process| "
             f"{r['max_abs_diff']:.3e} px (mean {r['mean_abs_diff']:.3e}), "
@@ -1239,6 +1410,12 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
             f"f32 small clip (1, 5, 64, 128): max |disparity "
             f"- single process| {small['sound']:.3e} px (tol {RING_SMALL_TOL}), with the carry "
             f"dropped {small['fault']:.3e} px")
+        cw = r["carry_window"]
+        log(f"  ring rank {rank}, one steady window under torch.profiler: kernel 5 launched "
+            f"{cw['launches']} times (expected {RING_RANKS * LAUNCHES_PER_WINDOW}), "
+            f"{cw['kernels']} seen by the profiler, device time "
+            + ("not measured (the profiler saw no device time)" if cw["device_ms"] is None
+               else f"{cw['device_ms']:.3f} ms per window and rank") + f", on {smi}")
         sound, dropped = plays["sound"], plays["fault"]
         log(f"  ring rank {rank}, play steps of the first {WINDOW} frames against the unsharded "
             f"play on the same inputs: {sound['calls']} ringed calls (expected "
@@ -1257,9 +1434,17 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
                                f"(want {ref.shape}) or non-finite")
         if not res["staged"]:
             raise RuntimeError("the ring phase expects a gloo group staged through the host")
-        if r["counts"]["play_attention_carry"] != want_carry or r["counts"]["play_attention_fwd"]:
+        if (r["counts"]["play_attention_carry"] != want_carry or r["counts"]["play_attention_fwd"]
+                or r["counts"]["corr_lookup"] != want_lookup):
             raise RuntimeError(f"ring rank {r['rank']}: launches {r['counts']}, expected "
-                               f"{want_carry} of kernel 5 and none of kernel 1")
+                               f"{want_carry} of kernel 5, none of kernel 1 and {want_lookup} "
+                               "of kernel 6")
+        cw = r["carry_window"]
+        if cw["launches"] != RING_RANKS * LAUNCHES_PER_WINDOW or (
+                cw["device_ms"] is not None and cw["kernels"] != cw["launches"]):
+            raise RuntimeError(f"ring rank {r['rank']}: the profiled window launched kernel 5 "
+                               f"{cw['launches']} times and the profiler saw {cw['kernels']}, "
+                               f"expected {RING_RANKS * LAUNCHES_PER_WINDOW}")
         if not abs(r["epe"] - main_run["epe"]) <= RING_EPE_TOL:
             raise RuntimeError(f"ring rank {r['rank']}: EPE {r['epe']:.4f} px against the "
                                f"single process's {main_run['epe']:.4f} px")
@@ -1277,12 +1462,14 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
             raise RuntimeError("the ring's disparity limit does not catch a dropped carry")
     return dict(readings=readings, wall_s=wall_s,
                 launches=readings[0]["counts"]["play_attention_carry"],
+                carry_window_ms=readings[0]["carry_window"]["device_ms"],
                 lookup_launches=readings[0]["counts"]["corr_lookup"])
 
 
 # kernel-name fragments -> the layer that launches them
 _KERNEL_GROUPS = (
-    ("play attention (CUDA kernel)", ("play_attention",)),
+    ("play attention (CUDA kernel 1)", ("play_attention",)),
+    ("pyramid lookup (CUDA kernel 6)", ("corr_lookup",)),
     ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "winograd", "fprop")),
     ("matrix products (cuBLAS)", ("gemm", "gemv", "cutlass", "splitk")),
     ("gathers and indexing", ("gather", "index", "scatter")),
@@ -1318,14 +1505,16 @@ def phase_profile(main_run: dict, smi: str):
         group = next((name for name, frags in _KERNEL_GROUPS
                       if any(f in key for f in frags)), "elementwise and other")
         groups[group] += e.self_device_time_total / 1e3
+    lookups = sum(e.count for e in kernels if "corr_lookup" in e.key)
     log(f"profile of one {WINDOW}-frame window: wall {wall_ms:.1f} ms (profiler on), "
         f"device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
-        f"{sum(e.count for e in kernels)} kernel launches, on {smi}")
+        f"{sum(e.count for e in kernels)} kernel launches ({lookups} of kernel 6), on {smi}")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {name}: {ms:.1f} ms ({100 * ms / device_ms:.1f}% of device time)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  top kernel {e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:90]}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups)
+    return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups,
+                launches=sum(e.count for e in kernels), lookup_launches=lookups)
 
 
 TRAIN_DIR = REPO / "build" / "chip_smoke_train"
@@ -1527,7 +1716,7 @@ _KERNEL_RECORDS = (
      "ppmstereo_tpu/kernels/play_attention.py:378"),
     ("bwd_dkv", "play_attention_bwd_dkv", "ppmstereo_tpu_torch/csrc/play_attention_bwd.cu",
      "ppmstereo_tpu/kernels/play_attention.py:425"),
-    ("carry", "play_attention_carry", "ppmstereo_tpu_torch/csrc/play_attention.cu",
+    ("carry", "play_attention_carry", "ppmstereo_tpu_torch/csrc/play_attention_fwd.cu",
      "ppmstereo_tpu/kernels/play_attention.py:145"),
     ("lookup", "corr_lookup", "ppmstereo_tpu_torch/csrc/corr_lookup.cu",
      "ppmstereo_tpu/kernels/corr_lookup.py:36"),
@@ -1556,8 +1745,8 @@ def _shape_summary(row: dict) -> dict:
     """One shape of a kernel record: its times and its worst check as a
     share of the limit (max and mean readings); the log has every check."""
     checks = row["checks"].values()
-    out = {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "device_ms")
-           if k in row}
+    out = {k: row[k] for k in ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "device_ms",
+                               "device_cold_ms") if k in row}
     out["max_share"] = max(c["max_abs_err"] / c["tol"] for c in checks)
     out["mean_share"] = max(c["mean_abs_err"] / c["mean_tol"] for c in checks)
     return out
@@ -1587,9 +1776,9 @@ def main() -> None:
 
     # launches: kernel 1 on the inference path's run, kernels 2-4 on the
     # training path's run, kernel 5 on the ring path's run (rank 0); kernel
-    # 6 summed over the three runs, on whose paths it is not (the model runs
-    # ops/corr.py::corr_lookup, as the JAX model runs XLA's). Each path is
-    # driven with its counts set to 0 just before.
+    # 6 on the inference path's and the ring path's runs (rank 0; test
+    # mode), summed with the training path's (0: train mode runs the plain
+    # lookup). Each path is driven with its counts set to 0 just before.
     lookup = (main_run["lookup_launches"] + ring_run["lookup_launches"]
               + train_run["launches"]["corr_lookup"])
     launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"],
@@ -1598,11 +1787,14 @@ def main() -> None:
                for key, name, source, replaces in _KERNEL_RECORDS]
     for record, library in zip(records, ("play_attention_fwd", "play_attention_fwd",
                                          "play_attention_bwd", "play_attention_bwd",
-                                         "play_attention", "corr_lookup")):
+                                         "play_attention_fwd", "corr_lookup")):
         record["build_s"] = build_s[library]
-    for record in records[:4]:
+    for record in records[:5]:
         record["sass"] = sass[record["name"]]
+    records[5]["ptxas"] = sass["corr_lookup"]
     records[4]["ring"] = ring_run["readings"]
+    # measured on rank 0 in the ring phase (None: the profiler saw nothing)
+    records[4]["ms_per_window_and_rank"] = ring_run["carry_window_ms"]
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

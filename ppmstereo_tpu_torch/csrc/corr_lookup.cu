@@ -1,30 +1,55 @@
-// Correlation-pyramid lookup for Hopper (sm_90a).
+// Correlation-pyramid lookup for Hopper (sm_90a): kernel 6.
 //
 // Replaces the Pallas TPU kernel `_lookup_kernel` of
 // ppmstereo_tpu/kernels/corr_lookup.py (reached through
 // `corr_lookup_pallas`). For pixel p = (n, h, w1), level l and tap
 // t in [-r, r] it linearly interpolates the row corr_l[n, h, w1, :] of
 // length W_l at x_p / 2^l + t, with zeros outside [0, W_l):
-//   i0 = floor(pos), f = pos - i0,
-//   out[p, l (2r+1) + t + r] = corr_l[i0] (1 - f) + corr_l[i0 + 1] f.
-// All levels and taps are one launch; the output is (N, H, W1, L (2r+1))
-// f32, level-major.
+//   pos = x / 2^l + t, i0 = floor(pos), f = pos - i0,
+//   out[p, l (2r+1) + t + r] = corr_l[i0] (1 - f) + corr_l[i0 + 1] f,
+// the pyramid's values widened to f32 (as the Pallas kernel widens them) and
+// the blend in f32. All levels and taps are one launch; the output is
+// (N, H, W1, L (2r+1)), level-major, in f32 or bf16. The pyramid is f32 or
+// bf16 (the model's main path stores it in bf16: ops/corr.py::corr_volume).
+// The radius is 4, the model's.
 //
-// What bounds it: it does ~4 flops per output and reads, per pixel and
-// level, a window of 2r + 2 neighbouring f32 values of one row; it is
-// bound by memory (bytes, not operations). At the 1/4 stage of a 320x512
-// window (N 10, H 80, W1 128, W2 128) it writes 14.7 MB and reads ~10 MB of
-// the 98 MB pyramid.
+// What bounds it: bytes. It does ~4 flops per output and reads, per pixel
+// and level, a window of 2r + 2 neighbouring values of one row. At the 1/4
+// stage of a 320x512 window (N 10, H 80, W1 128, W2 128), bf16 in and out,
+// it must read ~6.5 MB of the 49 MB pyramid and write 7.4 MB: ~4.3 us at
+// 3.35 TB/s. The reads are scattered (each pixel has its own row), and a
+// small kernel of this kind is held back by the instructions it issues per
+// byte as much as by the bytes.
 //
-// Design (simple first version): one thread per output element, threads
-// of consecutive outputs on consecutive addresses, so a warp's stores are
-// coalesced and its loads fall in the few rows of one or two pixels; two
-// direct loads per output with the bounds test done on the index, not the
-// TPU kernel's one-hot reduction over the whole row. The blend is written
-// with round-to-nearest intrinsics (no fused multiply-add), in the order of
-// the plain version (ops/corr.py::_lookup_level_gather), so the two agree
-// bit for bit.
+// Design:
+//   * one thread per (pixel, level): a block of 256 threads takes tiles of
+//     64 pixels, the 4 levels in turn over its warps (one level per two
+//     warps, so a warp's level and row width are uniform);
+//   * the thread reads the 16-byte aligned chunks of its row that hold its
+//     window of 2r + 3 values (3 chunks of bf16, 4 of f32; one vector load
+//     each; elements of the neighbouring rows are masked), then shifts the
+//     window to element 0 with selects by the bits of its offset in the first
+//     chunk (a shifter, so the array stays in registers: no register array
+//     is indexed at run time), widens it to f32 and masks what lies outside
+//     the row;
+//   * fl(x/2^l + t) is floor(x/2^l) + t or, where the sum rounds up to the
+//     next integer, one more with f = 0, so tap t reads window elements t,
+//     t + 1 or t + 1, t + 2, chosen by a compare, from registers;
+//   * within a tile every index is 32-bit; the tile's outputs (64 x 36
+//     values, one contiguous span of the output) are staged in shared memory
+//     and written with 16-byte vector stores;
+//   * a grid of (SMs x resident blocks per SM) blocks walks over the tiles;
+//   * the blend is written with round-to-nearest intrinsics (no fused
+//     multiply-add), in the order of the plain version
+//     (ops/corr.py::_lookup_level_gather), so the f32 output equals it bit
+//     for bit for both pyramid dtypes, and the bf16 output equals its
+//     round-to-nearest cast.
+// A first design (16 lanes per (pixel, level), one element each, the taps'
+// neighbours by shuffles, each tap's arithmetic once per lane group) took
+// 1.9x as long at the 1/4 stage in bf16 (tools/lookup_variants.py,
+// "lane_groups").
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -32,61 +57,217 @@
 namespace {
 
 constexpr int MAX_LEVELS = 4;
+constexpr int R = 4;                   // radius
+constexpr int TAPS = 2 * R + 1;
+constexpr int WINDOW = 2 * R + 3;      // the values one (pixel, level) may read
+constexpr int MAX_CHANNELS = MAX_LEVELS * TAPS;
 constexpr int NTHREADS = 256;
+constexpr int TP = NTHREADS / MAX_LEVELS;  // pixels per tile
+constexpr float LIMIT = 1073741824.f;  // |floor(x / 2^l)| is clamped to 2^30
 
+template <typename T>
 struct Levels {
-  const float* ptr[MAX_LEVELS];
+  const T* ptr[MAX_LEVELS];
   int width[MAX_LEVELS];
 };
 
+__device__ __forceinline__ void put(float* dst, float x) { *dst = x; }
+__device__ __forceinline__ void put(__nv_bfloat16* dst, float x) { *dst = __float2bfloat16_rn(x); }
+
+// The bits of element i of p, or 0 where i lies outside [0, n).
+__device__ __forceinline__ uint32_t bits_of(const float* p, int i, int n) {
+  return (i >= 0 && i < n) ? __float_as_uint(p[i]) : 0u;
+}
+__device__ __forceinline__ uint32_t bits_of(const __nv_bfloat16* p, int i, int n) {
+  return (i >= 0 && i < n) ? static_cast<uint32_t>(__bfloat16_as_ushort(p[i])) : 0u;
+}
+
+// a, b, c or d for level 0, 1, 2 or 3 (the parameter arrays are not indexed
+// at run time, which would copy them to local memory)
+template <typename T>
+__device__ __forceinline__ T by_level(int l, T a, T b, T c, T d) {
+  return l == 0 ? a : l == 1 ? b : l == 2 ? c : d;
+}
+
+template <typename InT, typename OutT>
 __global__ void __launch_bounds__(NTHREADS)
-    corr_lookup_kernel(Levels lv, int num_levels, int radius,
-                       const float* __restrict__ coords, float* __restrict__ out,
-                       int64_t pixels) {
-  const int taps = 2 * radius + 1;
-  const int channels = num_levels * taps;
-  const int64_t total = pixels * channels;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(blockDim.x) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * blockDim.x) {
-    const int64_t p = i / channels;
-    const int c = static_cast<int>(i - p * channels);
-    const int l = c / taps;
-    const int t = c - l * taps - radius;
-    const int w = lv.width[l];
-    // x / 2^l is exact; pos = x / 2^l + t as the plain version adds it
-    const float pos = __fadd_rn(ldexpf(coords[p], -l), static_cast<float>(t));
-    const float i0f = floorf(pos);
-    const float frac = __fsub_rn(pos, i0f);
-    const int i0 = static_cast<int>(i0f);  // saturates far outside the row
-    const float* row = lv.ptr[l] + p * w;
-    const float a = (i0 >= 0 && i0 < w) ? row[i0] : 0.f;
-    const float b = (i0 >= -1 && i0 < w - 1) ? row[i0 + 1] : 0.f;
-    out[i] = __fadd_rn(__fmul_rn(a, __fsub_rn(1.f, frac)), __fmul_rn(b, frac));
+    corr_lookup_kernel(Levels<InT> lv, int num_levels, const float* __restrict__ coords,
+                       OutT* __restrict__ out, int pixels) {
+  constexpr int V = 16 / static_cast<int>(sizeof(InT));    // elements per 16-byte chunk
+  constexpr int NCH = (WINDOW + 2 * (V - 1)) / V;          // chunks that hold a window
+  constexpr int WORDS = 4 * NCH;                           // their 32-bit words
+  constexpr int EPW = 4 / static_cast<int>(sizeof(InT));   // elements per word
+  __shared__ __align__(16) unsigned char stage_raw[TP * MAX_CHANNELS * sizeof(OutT)];
+  OutT* stage = reinterpret_cast<OutT*>(stage_raw);
+  const int channels = num_levels * TAPS;
+  const int l = threadIdx.x / TP;
+  const int j = threadIdx.x % TP;  // the thread's pixel in the tile
+  const int w = l < num_levels
+                    ? by_level(l, lv.width[0], lv.width[1], lv.width[2], lv.width[3])
+                    : 0;
+  const InT* level = by_level(l, lv.ptr[0], lv.ptr[1], lv.ptr[2], lv.ptr[3]);
+  const float scale = __int_as_float((127 - l) << 23);  // 2^-l: x / 2^l is exact
+  const int ntiles = (pixels + TP - 1) / TP;
+  for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
+    const int p0 = tile * TP;
+    const int npix = min(TP, pixels - p0);
+    if (l < num_levels && j < npix) {
+      const float xl = __fmul_rn(coords[p0 + j], scale);
+      const int base = static_cast<int>(fmaxf(fminf(floorf(xl), LIMIT), -LIMIT));
+      const int e0 = base - R;  // the window's first element in the row
+      float win[WINDOW];
+      if (e0 + WINDOW <= 0 || e0 >= w) {
+#pragma unroll
+        for (int k = 0; k < WINDOW; ++k) win[k] = 0.f;
+      } else {
+        const InT* rows = level + static_cast<size_t>(p0) * w;  // the tile's rows
+        const int span = npix * w;
+        const int a = j * w + e0;
+        const int c0 = a & ~(V - 1);  // the first chunk, 16-byte aligned
+        const int s = a - c0;         // the window's offset in it
+        uint32_t raw[WORDS];
+#pragma unroll
+        for (int ch = 0; ch < NCH; ++ch) {
+          const int c = c0 + ch * V;
+          if (c >= 0 && c + V <= span) {
+            const uint4 q = *reinterpret_cast<const uint4*>(rows + c);
+            raw[4 * ch] = q.x;
+            raw[4 * ch + 1] = q.y;
+            raw[4 * ch + 2] = q.z;
+            raw[4 * ch + 3] = q.w;
+          } else {  // a chunk across the tile's first or last element
+#pragma unroll
+            for (int m = 0; m < 4; ++m) {
+              raw[4 * ch + m] = EPW == 1 ? bits_of(rows, c + m, span)
+                                         : bits_of(rows, c + 2 * m, span) |
+                                               (bits_of(rows, c + 2 * m + 1, span) << 16);
+            }
+          }
+        }
+        // shift the window to element 0: half a word (bf16), then one and
+        // two words, by the bits of s
+        int sw = s;
+        if constexpr (EPW == 2) {
+#pragma unroll
+          for (int m = 0; m < WORDS - 1; ++m) {
+            raw[m] = (s & 1) ? __funnelshift_r(raw[m], raw[m + 1], 16) : raw[m];
+          }
+          sw = s >> 1;
+        }
+#pragma unroll
+        for (int m = 0; m < WORDS - 1; ++m) raw[m] = (sw & 1) ? raw[m + 1] : raw[m];
+#pragma unroll
+        for (int m = 0; m < WORDS - 2; ++m) raw[m] = (sw & 2) ? raw[m + 2] : raw[m];
+#pragma unroll
+        for (int k = 0; k < WINDOW; ++k) {  // widen exactly
+          win[k] = __uint_as_float(EPW == 1 ? raw[k]
+                                            : ((k & 1) ? (raw[k / 2] & 0xffff0000u)
+                                                       : (raw[k / 2] << 16)));
+        }
+        if (e0 < 0 || e0 + WINDOW > w) {  // zeros outside the row
+#pragma unroll
+          for (int k = 0; k < WINDOW; ++k) {
+            if (e0 + k < 0 || e0 + k >= w) win[k] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < TAPS; ++t) {
+        // pos = x / 2^l + t as the plain version adds it
+        const float pos = __fadd_rn(xl, static_cast<float>(t - R));
+        const float i0f = floorf(pos);
+        const float frac = __fsub_rn(pos, i0f);
+        const bool up = i0f != static_cast<float>(base + t - R);  // rounded up: f = 0
+        const float lo = up ? win[t + 1] : win[t];
+        const float hi = up ? win[t + 2] : win[t + 1];
+        put(&stage[j * channels + l * TAPS + t],
+            __fadd_rn(__fmul_rn(lo, __fsub_rn(1.f, frac)), __fmul_rn(hi, frac)));
+      }
+    }
+    __syncthreads();
+    // the tile's span of the output: 16-byte stores, then any tail element
+    // (the span starts 16-byte aligned: 64 pixels x 9 taps x 2 bytes is
+    // 1152 bytes)
+    const int n_out = npix * channels;
+    const int n_vec = n_out * static_cast<int>(sizeof(OutT)) / 16;
+    OutT* dst = out + static_cast<size_t>(p0) * channels;
+    for (int c = threadIdx.x; c < n_vec; c += NTHREADS) {
+      reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(stage)[c];
+    }
+    for (int e = n_vec * 16 / static_cast<int>(sizeof(OutT)) + threadIdx.x; e < n_out;
+         e += NTHREADS) {
+      dst[e] = stage[e];
+    }
+    __syncthreads();  // the stage is refilled by the next tile
   }
+}
+
+// The SM count of the current device, asked of the runtime once a device.
+cudaError_t current_sms(int* sms) {
+  constexpr int MAX_DEVICES = 64;
+  static int sms_of[MAX_DEVICES] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  if (sms_of[device] == 0) {
+    err = cudaDeviceGetAttribute(&sms_of[device], cudaDevAttrMultiProcessorCount, device);
+    if (err != cudaSuccess) return err;
+  }
+  *sms = sms_of[device];
+  return cudaSuccess;
+}
+
+template <typename InT, typename OutT>
+int launch(const void* const* levels, const int* widths, int num_levels, const void* coords,
+           void* out, int pixels, cudaStream_t stream) {
+  static int blocks_per_sm = 0;  // resident blocks of this instance per SM
+  if (blocks_per_sm == 0) {
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks_per_sm, corr_lookup_kernel<InT, OutT>, NTHREADS, 0);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  int sms = 0;
+  const cudaError_t err = current_sms(&sms);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  Levels<InT> lv{};
+  for (int l = 0; l < num_levels; ++l) {
+    lv.ptr[l] = static_cast<const InT*>(levels[l]);
+    lv.width[l] = widths[l];
+  }
+  const int ntiles = (pixels + TP - 1) / TP;
+  const int blocks = ntiles < sms * blocks_per_sm ? ntiles : sms * blocks_per_sm;
+  corr_lookup_kernel<InT, OutT><<<blocks, NTHREADS, 0, stream>>>(
+      lv, num_levels, static_cast<const float*>(coords), static_cast<OutT*>(out), pixels);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// levels: `num_levels` (1..4) pointers to contiguous f32 (pixels, widths[l])
-// rows on the current device; coords (pixels) f32; out (pixels,
-// num_levels * (2 radius + 1)) f32. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int corr_lookup(const void* const* levels, const int* widths, int num_levels,
-                           int radius, const void* coords, void* out, int64_t pixels,
-                           void* stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 0) {
+// levels 0 .. num_levels - 1 (1..4): contiguous (pixels, width_l) rows on the
+// current device, 16-byte aligned, f32 (pyramid_bf16 = 0) or bf16 (1), the
+// rest ignored; coords (pixels) f32; out (pixels, num_levels * 9), f32
+// (out_bf16 = 0) or bf16 (1), 16-byte aligned. radius must be 4. Launches on
+// `stream` and returns cudaGetLastError() (0 on success), or
+// cudaErrorInvalidValue for arguments the kernel does not take.
+extern "C" int corr_lookup(const void* level0, const void* level1, const void* level2,
+                           const void* level3, int width0, int width1, int width2, int width3,
+                           int num_levels, int radius, const void* coords, void* out,
+                           int64_t pixels, int pyramid_bf16, int out_bf16, void* stream) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS || radius != R || pixels < 0 ||
+      pixels > INT32_MAX - TP) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  Levels lv{};
-  for (int l = 0; l < num_levels; ++l) {
-    lv.ptr[l] = static_cast<const float*>(levels[l]);
-    lv.width[l] = widths[l];
+  if (pixels == 0) return 0;
+  const void* const levels[MAX_LEVELS] = {level0, level1, level2, level3};
+  const int widths[MAX_LEVELS] = {width0, width1, width2, width3};
+  const int n = static_cast<int>(pixels);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (pyramid_bf16) {
+    return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(levels, widths, num_levels, coords,
+                                                           out, n, s)
+                    : launch<__nv_bfloat16, float>(levels, widths, num_levels, coords, out, n, s);
   }
-  const int64_t total = pixels * num_levels * (2 * radius + 1);
-  const int64_t want = (total + NTHREADS - 1) / NTHREADS;
-  const int blocks = static_cast<int>(want < 132 * 64 ? (want > 0 ? want : 1) : 132 * 64);
-  corr_lookup_kernel<<<blocks, NTHREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      lv, num_levels, radius, static_cast<const float*>(coords),
-      static_cast<float*>(out), pixels);
-  return static_cast<int>(cudaGetLastError());
+  return out_bf16 ? launch<float, __nv_bfloat16>(levels, widths, num_levels, coords, out, n, s)
+                  : launch<float, float>(levels, widths, num_levels, coords, out, n, s);
 }

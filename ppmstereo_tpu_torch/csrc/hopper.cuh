@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks shared by the play-attention kernels of
-// play_attention_fwd.cu (kernels 1 and 2) and play_attention_bwd.cu
+// play_attention_fwd.cu (kernels 1, 2 and 5) and play_attention_bwd.cu
 // (kernels 3 and 4): mbarriers with a timed wait that aborts instead of
 // hanging, TMA tile loads, 128-byte-swizzle wgmma descriptors, the wgmma
 // products the kernels use, register pins, and the host-side encoding of

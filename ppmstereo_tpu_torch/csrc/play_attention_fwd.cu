@@ -1,19 +1,44 @@
 // Play attention forward for Hopper (sm_90a): O = softmax(scale * Q K^T) V.
-// Kernel 1 (`play_attention_fwd`, inference) and kernel 2
-// (`play_attention_fwd_res`, training's forward, which also writes each row's
-// base-2 log-sum-exp) come from one template; the lse store is a compile-time
-// flag, so kernel 2's o is kernel 1's bit for bit.
+// Three kernels come from one template whose mode (a compile-time argument)
+// changes only the prologue and the epilogue:
+//   * kernel 1 (`play_attention_fwd`, inference): o = O / l in bf16;
+//   * kernel 2 (`play_attention_fwd_res`, training's forward): the same o,
+//     bit for bit, and each row's base-2 log-sum-exp;
+//   * kernel 5 (`play_attention_carry`, one hop of the ring play attention):
+//     starts from an incoming unnormalised state and writes the merged state
+//     back in place.
 //
-// Replaces the Pallas TPU kernel `_flash_kernel` of
+// Kernels 1 and 2 replace the Pallas TPU kernel `_flash_kernel` of
 // ppmstereo_tpu/kernels/play_attention.py, reached through
 // `_play_attention_pallas` (dispatched by `play_attention`, called from
 // `PPMUpdateLoop._play`) and, with `save_residuals=True`, through
-// `_flash_fwd_res` (the forward of the custom VJP). It computes what that
+// `_flash_fwd_res` (the forward of the custom VJP). They compute what that
 // kernel computes: single head, non-causal, head dim 128, bf16 q/k/v, an
 // online base-2 softmax in f32, an f32 accumulator, bf16 output, keys past Lk
 // masked. With `lse` it writes lse = m + log2(l) per row, one f32 per row
 // (B, Lq), where the Pallas kernel writes m and l as (B, Lq, 128) lane tiles;
 // the backward kernels (play_attention_bwd.cu) consume it.
+//
+// Kernel 5 replaces `_flash_carry_kernel` of the same file (reached through
+// `flash_attend_carry`, called per hop by
+// ppmstereo_tpu/parallel/ring_attention.py::_ring_local). The state is
+// o (B, Lq, 128) f32 unnormalised, m (B, Lq) f32 the base-2 row max and
+// l (B, Lq) f32 the row sum, one value per row (not the TPU's 128-lane
+// tiles). The prologue loads the incoming state into the accumulators
+// before the key loop (o into the O accumulator, m into the row maxima, l
+// into the partial sum of each row's first lane), so the loop merges every
+// key tile into it as the online softmax merges tiles:
+//   m' = max(m, rowmax s), alpha = exp2(m - m'),
+//   l' = alpha l + rowsum exp2(s - m'), o' = alpha o + exp2(s - m') V,
+// and the epilogue writes o (f32, unnormalised), m and l back in place; the
+// caller divides o by l after the last hop. (Merging an empty-state result
+// with the incoming state in the epilogue would be the same function with
+// its f32 roundings in another order; loading it first needs no second copy
+// of o, which the consumers' registers could not hold.) A hop at the 1/4
+// stage of the 2-way ring (10 x 5,120 x 25,600) reads and writes 2 x 26 MB of
+// f32 state beside 144 MB of bf16 inputs, outside the pipelined loop, as
+// float2 per lane; it is still bound by the tensor cores (6.7e11 FLOP,
+// 0.68 ms at 989 TFLOP/s).
 //
 // What bounds it: one 1/4-stage launch at 320x512 is 10 rows x Lq 10,240 x
 // Lk 51,200 x D 128: 2.7e12 FLOP against ~315 MB moved, ~8,500 FLOP a byte,
@@ -62,7 +87,7 @@
 //     or past Lk get -inf logits, only on the last, ragged tile;
 //   * the epilogue normalises by l, stores bf16 pairs straight from the
 //     accumulator (rows at or past Lq are not stored) and, for kernel 2, one
-//     f32 lse per row.
+//     f32 lse per row; kernel 5 writes its f32 state back instead (see above).
 // Pitfalls this design meets, and what it does about them:
 //   * descriptors vs swizzle: a wgmma descriptor whose layout does not match
 //     the TMA swizzle gives wrong numbers, not a crash. The shared tiles are
@@ -85,7 +110,8 @@
 //     and serialised the wgmma (C7512): 6.0 ms against 4.2 ms at the 1/4
 //     shape on an H100.
 //     `-Xptxas -v` shows spills; `chip_smoke.py` prints its lines.
-// The kernel allocates nothing; the caller passes the output buffers. The
+// The kernel allocates nothing; the caller passes the output (or state)
+// buffers. The
 // host side encodes the tensor maps at each launch with
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
 // library needs no -lcuda.
@@ -160,13 +186,23 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], float (&m)[2], floa
   for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
 }
 
-template <bool WITH_LSE>
+// The template's modes (mangled as ILi0E, ILi1E, ILi2E).
+enum : int {
+  NORMALISED = 0,  // kernel 1: o / l in bf16
+  WITH_LSE = 1,    // kernel 2: kernel 1's o, and lse per row
+  CARRY = 2,       // kernel 5: the state (o, m, l) read and written back, f32
+};
+
+// o_out: bf16 (B, Lq, 128) for NORMALISED and WITH_LSE, the f32 state o for
+// CARRY; lse (WITH_LSE), cm and cl (CARRY): (B, Lq) f32, else unused.
+template <int MODE>
 __global__ void __launch_bounds__(NTHREADS, 1)
     play_attention_fwd_kernel(const __grid_constant__ CUtensorMap q_map,
                               const __grid_constant__ CUtensorMap k_map,
                               const __grid_constant__ CUtensorMap v_map,
-                              __nv_bfloat16* __restrict__ o_out, float* __restrict__ lse,
-                              int Lq, int Lk, float scale_log2) {
+                              void* __restrict__ o_out, float* __restrict__ lse,
+                              float* __restrict__ cm, float* __restrict__ cl, int Lq, int Lk,
+                              float scale_log2) {
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t s_base = smem_addr(aligned_smem(smem_raw));
   const uint32_t bar_q = s_base + BAR_OFF;
@@ -238,6 +274,28 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     float m[2] = {-INFINITY, -INFINITY};  // base-2 row maxima
     float l[2] = {0.f, 0.f};              // this lane's partial row sums
     float alpha[2];
+    if constexpr (MODE == CARRY) {
+      // the incoming state: this thread's columns of o in the accumulator's
+      // layout (o[4n + 2r + e] is row r0 + 8r, column 8n + 2t + e), the row
+      // maxima, and each row sum in the partial sum of the row's first lane;
+      // rows at or past Lq start empty and are not read
+      const float* co = static_cast<const float*>(o_out) + static_cast<size_t>(b) * Lq * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < Lq) {
+          const float* orow = co + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            const float2 x = *reinterpret_cast<const float2*>(orow + 8 * n);
+            o[4 * n + 2 * r] = x.x;
+            o[4 * n + 2 * r + 1] = x.y;
+          }
+          m[r] = cm[static_cast<size_t>(b) * Lq + row];
+          if (t == 0) l[r] = cl[static_cast<size_t>(b) * Lq + row];
+        }
+      }
+    }
 
     // tile 0: S_0 and its softmax, nothing to overlap with yet
     mbar_wait(bar_q, 0, abort_flag);
@@ -250,6 +308,11 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     pin(s);
     mbar_arrive(bar_k_empty);
     softmax_tile(s, m, l, alpha, 0, Lk, t, scale_log2);
+    if constexpr (MODE == CARRY) {
+      // the incoming o into tile 0's units (elsewhere o is still zero)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[i] *= alpha[(i >> 1) & 1];
+    }
     pack_acc<64>(p, s);
 
     for (int j = 1; j < ntiles; ++j) {
@@ -287,49 +350,73 @@ __global__ void __launch_bounds__(NTHREADS, 1)
     wgmma_wait<0>();
     pin(o);
 
-    // epilogue: full row sums across the 4 lanes of each row, normalise, store
-    float inv[2];
+    // epilogue: full row sums across the 4 lanes of each row
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
       l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      inv[r] = 1.f / l[r];
     }
-    // a wait timed out: write NaN, so no check can pass
-    if (block_aborted(abort_flag)) inv[0] = inv[1] = NAN;
-    __nv_bfloat16* ob = o_out + static_cast<size_t>(b) * Lq * D;
+    if constexpr (MODE == CARRY) {
+      // the merged state, unnormalised, in place; a wait timed out: NaN
+      // into o and l, so no check can pass
+      const float keep = block_aborted(abort_flag) ? NAN : 1.f;
+      float* co = static_cast<float*>(o_out) + static_cast<size_t>(b) * Lq * D;
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int row = r0 + 8 * r;
-      if (row < Lq) {
-        __nv_bfloat16* orow = ob + static_cast<size_t>(row) * D + 2 * t;
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < Lq) {
+          float* orow = co + static_cast<size_t>(row) * D + 2 * t;
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
-              o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
+          for (int n = 0; n < D / 8; ++n) {
+            *reinterpret_cast<float2*>(orow + 8 * n) =
+                make_float2(o[4 * n + 2 * r] * keep, o[4 * n + 2 * r + 1] * keep);
+          }
+          if (t == 0) {
+            cm[static_cast<size_t>(b) * Lq + row] = m[r];
+            cl[static_cast<size_t>(b) * Lq + row] = l[r] * keep;
+          }
         }
-        if (WITH_LSE && t == 0) lse[static_cast<size_t>(b) * Lq + row] = m[r] + log2f(l[r]);
+      }
+    } else {
+      // normalise and store
+      float inv[2] = {1.f / l[0], 1.f / l[1]};
+      // a wait timed out: write NaN, so no check can pass
+      if (block_aborted(abort_flag)) inv[0] = inv[1] = NAN;
+      __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(o_out) + static_cast<size_t>(b) * Lq * D;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int row = r0 + 8 * r;
+        if (row < Lq) {
+          __nv_bfloat16* orow = ob + static_cast<size_t>(row) * D + 2 * t;
+#pragma unroll
+          for (int n = 0; n < D / 8; ++n) {
+            *reinterpret_cast<__nv_bfloat162*>(orow + 8 * n) = __floats2bfloat162_rn(
+                o[4 * n + 2 * r] * inv[r], o[4 * n + 2 * r + 1] * inv[r]);
+          }
+          if (MODE == WITH_LSE && t == 0) {
+            lse[static_cast<size_t>(b) * Lq + row] = m[r] + log2f(l[r]);
+          }
+        }
       }
     }
   }
 }
 
-template <bool WITH_LSE>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Lq,
-           int Lk, float scale_log2, void* stream) {
+template <int MODE>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, float* cm,
+           float* cl, int B, int Lq, int Lk, float scale_log2, void* stream) {
   CUtensorMap q_map, k_map, v_map;
   if (!make_map(&q_map, q, Lq, B, BM) || !make_map(&k_map, k, Lk, B, BN) ||
       !make_map(&v_map, v, Lk, B, BN)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  cudaError_t err = cudaFuncSetAttribute(play_attention_fwd_kernel<WITH_LSE>,
+  cudaError_t err = cudaFuncSetAttribute(play_attention_fwd_kernel<MODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          SMEM_BYTES);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((Lq + BM - 1) / BM, B);
-  play_attention_fwd_kernel<WITH_LSE>
-      <<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
-          q_map, k_map, v_map, static_cast<__nv_bfloat16*>(o), lse, Lq, Lk, scale_log2);
+  play_attention_fwd_kernel<MODE><<<grid, NTHREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      q_map, k_map, v_map, o, lse, cm, cl, Lq, Lk, scale_log2);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -341,7 +428,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 // cudaErrorInvalidValue when a tensor map cannot be made.
 extern "C" int play_attention_fwd(const void* q, const void* k, const void* v, void* o, int B,
                                   int Lq, int Lk, float scale_log2, void* stream) {
-  return launch<false>(q, k, v, o, nullptr, B, Lq, Lk, scale_log2, stream);
+  return launch<NORMALISED>(q, k, v, o, nullptr, nullptr, nullptr, B, Lq, Lk, scale_log2, stream);
 }
 
 // As play_attention_fwd, and writes lse (B, Lq) f32: each row's base-2
@@ -349,5 +436,17 @@ extern "C" int play_attention_fwd(const void* q, const void* k, const void* v, v
 extern "C" int play_attention_fwd_res(const void* q, const void* k, const void* v, void* o,
                                       void* lse, int B, int Lq, int Lk, float scale_log2,
                                       void* stream) {
-  return launch<true>(q, k, v, o, static_cast<float*>(lse), B, Lq, Lk, scale_log2, stream);
+  return launch<WITH_LSE>(q, k, v, o, static_cast<float*>(lse), nullptr, nullptr, B, Lq, Lk,
+                          scale_log2, stream);
+}
+
+// One ring hop (kernel 5): q (B, Lq, 128), k and v (B, Lk, 128) bf16; the
+// state o (B, Lq, 128), m and l (B, Lq) f32, read and overwritten with the
+// merged state (unnormalised; m base 2). All contiguous on the current
+// device, 16-byte aligned. Returns as play_attention_fwd.
+extern "C" int play_attention_carry(const void* q, const void* k, const void* v, void* o,
+                                    void* m, void* l, int B, int Lq, int Lk, float scale_log2,
+                                    void* stream) {
+  return launch<CARRY>(q, k, v, o, nullptr, static_cast<float*>(m), static_cast<float*>(l), B,
+                       Lq, Lk, scale_log2, stream);
 }

@@ -14,7 +14,7 @@ against on the card:
   play_attention_fwd.cu, forward + residual `_flash_kernel(save_residuals)` `play_attention_fwd_res_plain`
   play_attention_bwd.cu, dq                 `_flash_bwd_dq_kernel`          `play_attention_bwd_plain`
   play_attention_bwd.cu, dk and dv          `_flash_bwd_dkv_kernel`         `play_attention_bwd_plain`
-  play_attention.cu, carry (ring hop)       `_flash_carry_kernel`           `play_attention_carry_plain`
+  play_attention_fwd.cu, carry (ring hop)   `_flash_carry_kernel`           `play_attention_carry_plain`
 
 The plain versions are chunked over query rows with f32 logits, as the JAX
 package's `_play_attention_xla` and `_attention_bwd_xla` are. The kernels
@@ -357,7 +357,7 @@ def play_attention_carry(q, k, v, o, m, l, scale: float):
     _check_cuda_tensor("o", o, q.device, torch.float32, tuple(q.shape))
     for name, x in (("m", m), ("l", l)):
         _check_cuda_tensor(name, x, q.device, torch.float32, (b, lq))
-    _launch("play_attention", "play_attention_carry", q.device,
+    _launch("play_attention_fwd", "play_attention_carry", q.device,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), m.data_ptr(),
             l.data_ptr(), b, lq, k.shape[1], scale * LOG2E)
     play_attention_carry.launches += 1

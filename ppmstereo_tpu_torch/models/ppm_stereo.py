@@ -5,7 +5,10 @@ Counterpart of ppmstereo_tpu/models/ppm_stereo.py (`PPMUpdateLoop`,
 with an SST attention block, a quality-scored top-k frame memory ("pick")
 and attention over the picked frames ("play"). The refinement loop is a
 Python loop. The play attention runs through the hand-written CUDA kernels
-on a card (`kernels/play_attention.py`), its backward included.
+on a card (`kernels/play_attention.py`), its backward included. Test mode
+runs the pyramid lookup as kernel 6 (`kernels/corr_lookup.py`, which writes
+the features in the model's dtype); train mode runs the plain lookup
+(`ops/corr.py::corr_lookup`), which autograd differentiates.
 
 Test mode returns the final disparity and uncertainty. Train mode returns
 every iteration's full-resolution prediction and uncertainty, and runs each
@@ -40,6 +43,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ppmstereo_tpu_torch.kernels.corr_lookup import corr_lookup_kernel
 from ppmstereo_tpu_torch.kernels.play_attention import play_attention, play_scale
 from ppmstereo_tpu_torch.nn.attention import temporal_positional_encoding
 from ppmstereo_tpu_torch.nn.convnext import ContextNet
@@ -132,10 +136,15 @@ class PPMUpdateLoop(nn.Module):
         dtype = self.dtype
         ub = self.update_block
         b, t, h, w, _ = flow.shape
-        # 1. pyramid lookup around the current disparity (f32)
+        # 1. pyramid lookup around the current disparity (f32 blend, features
+        # in `dtype`): the kernel in test mode, the differentiable plain
+        # lookup in train mode (collect_preds)
         coords_x = coords0 + flow[..., 0].reshape(b * t, h, w)
-        corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS)
-        corrs = corrs.reshape(b, t, h, w, -1).to(dtype)
+        if self.collect_preds:
+            corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS).to(dtype)
+        else:
+            corrs = corr_lookup_kernel(pyramid, coords_x, CORR_RADIUS, out_dtype=dtype)
+        corrs = corrs.reshape(b, t, h, w, -1)
         # 2. motion features, recurrent state, value
         motion, motion_hidden, value = ub.get_motion_and_value(
             flow.to(dtype), corrs, motion_hidden)

@@ -2,9 +2,10 @@
 
 Counterpart of ppmstereo_tpu/ops/corr.py for the PPMStereo path. The lookup
 is the two-tap gather form (`_lookup_level_gather`) in plain PyTorch, as the
-JAX model leaves its lookup to XLA. The counterpart of the JAX package's
-Pallas lookup kernel, `kernels/corr_lookup.py`, holds this lookup as its
-plain version and is on no path of the model yet.
+JAX model leaves its lookup to XLA. It is the plain version of kernel 6,
+`kernels/corr_lookup.py` (the counterpart of the JAX package's Pallas lookup
+kernel), which the model runs in test mode; train mode runs this lookup,
+which autograd differentiates.
 
 Tensors are channels-last. fmap: (B, H, W, C). volume: (B, H, W1, W2).
 """

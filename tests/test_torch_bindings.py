@@ -4,8 +4,9 @@ bound with a ctypes argument list of its own length, with a pointer type for
 every pointer and the stream (a missing or short list passes each as a
 32-bit int and cuts 64-bit pointers); every wrapper's launch names a library
 that defines the function; a library's name changes when a `csrc/*.cuh`
-header does; and chip_smoke.py's readers of the machine code and of ptxas's
-report (HGMMA and UTMALDG in each Hopper kernel, no spills) on canned text."""
+header does; chip_smoke.py's readers of the machine code, of ptxas's report
+(HGMMA and UTMALDG in each Hopper kernel, no spills) and of the profiler's
+kernel times, and tools/ab_lookup.py's summary, on canned input."""
 
 import ctypes
 import re
@@ -186,11 +187,117 @@ def _variant_cases():
                          ids=lambda x: x if isinstance(x, str) else x.__name__)
 def test_kernel_variants_apply_to_the_sources(tool, name):
     """Every edit of tools/fwd_variants.py and tools/bwd_variants.py finds
-    its text exactly once in the kernel source or a header as they stand,
-    so the tools still build what they name."""
+    its text exactly once in the kernel source or a header as they stand, so
+    the tools still build what they name."""
     import fwd_variants
 
     files = fwd_variants.edited_sources(name, tool.SOURCE, tool.VARIANTS)
     assert tool.SOURCE.name in files and "hopper.cuh" in files
     unedited = fwd_variants.edited_sources("committed", tool.SOURCE, tool.VARIANTS)
     assert (files == unedited) == (not tool.VARIANTS[name])
+
+
+def test_kernel_5_is_a_mode_of_the_forward_library():
+    """The ring hop lives in csrc/play_attention_fwd.cu beside kernels 1 and
+    2 (the mma.sync source is gone) and keeps its C signature; chip_smoke.py
+    checks its SASS as one of the forward library's Hopper kernels."""
+    import chip_smoke
+
+    assert not (_build.CSRC / "play_attention.cu").exists()
+    assert FUNCTIONS["play_attention_carry"] == ("play_attention_fwd", [
+        "const void* q", "const void* k", "const void* v", "void* o", "void* m", "void* l",
+        "int B", "int Lq", "int Lk", "float scale_log2", "void* stream"])
+    assert set(chip_smoke.KERNEL_LIBRARIES) == {src for src, _ in FUNCTIONS.values()}
+    assert chip_smoke.HOPPER_KERNELS["play_attention_fwd"]["play_attention_carry"] == (
+        "play_attention_fwd_kernelILi2E")
+
+
+def test_lookup_binding_takes_the_dtypes():
+    """Kernel 6's entry point takes four level pointers and widths as
+    scalars (no ctypes arrays built per call) and the pyramid's and the
+    output's dtype as two int flags."""
+    _, params = FUNCTIONS["corr_lookup"]
+    assert [p.rsplit(None, 1)[1] for p in params] == [
+        "level0", "level1", "level2", "level3", "width0", "width1", "width2", "width3",
+        "num_levels", "radius", "coords", "out", "pixels", "pyramid_bf16", "out_bf16", "stream"]
+
+
+def test_ptxas_resources_reads_every_instance():
+    """Kernel 6's registers and spills, per template instance, from ptxas's
+    report: a reading, which raises on nothing."""
+    import chip_smoke
+
+    text = _PTXAS.replace("play_attention_bwd_dq_kernel", "corr_lookup_kernelIffE").replace(
+        "play_attention_bwd_dkv_kernel", "corr_lookup_kernelI13__nv_bfloat16S0_E")
+    assert chip_smoke.ptxas_resources(text, "corr_lookup_kernel") == {
+        "_ZN_x_28corr_lookup_kernelIffEE": {"spill_bytes": 0, "registers": 168},
+        "_ZN_x_29corr_lookup_kernelI13__nv_bfloat16S0_EE": {"spill_bytes": 480,
+                                                            "registers": 168}}
+    assert chip_smoke.ptxas_resources(_PTXAS, "corr_lookup_kernel") == {}
+
+
+def _events(*names):
+    """Profiler averages as `key_averages()` gives them: (key, on the
+    device, count, self device us)."""
+    from types import SimpleNamespace
+
+    import torch
+
+    kinds = {True: torch.autograd.DeviceType.CUDA, False: torch.autograd.DeviceType.CPU}
+    return [SimpleNamespace(key=key, device_type=kinds[dev], count=n, self_device_time_total=us)
+            for key, dev, n, us in names]
+
+
+@pytest.mark.parametrize("events,want", [
+    # kernel 5's instance only: not kernels 1 and 2, not the host's range
+    (_events(("void play_attention_fwd_kernel<2>(CUtensorMap_st, int)", True, 40, 25500.0),
+             ("void play_attention_fwd_kernel<0>(CUtensorMap_st, int)", True, 20, 41000.0),
+             ("void play_attention_fwd_kernel<1>(CUtensorMap_st, int)", True, 3, 999.0),
+             ("play_attention_fwd_kernel<2>", False, 40, 7.0)),
+     {"kernels": 40, "device_ms": 25.5}),
+    # the profiler saw no device time: not measured
+    (_events(("aten::add", False, 3, 0.0)), {"kernels": 0, "device_ms": None}),
+])
+def test_kernel_device_ms_sums_kernel_5s_instance(events, want):
+    """chip_smoke.py's ring phase reads kernel 5's device time per window
+    from the profiler's kernels named as its template instance."""
+    import chip_smoke
+
+    assert chip_smoke.kernel_device_ms(events, chip_smoke.CARRY_KERNEL) == want
+
+
+def test_kernel_device_ms_raises_when_the_kernel_is_missing():
+    """Device kernels recorded, none of them kernel 5: a wrong name, which
+    must fail rather than read as not measured."""
+    import chip_smoke
+
+    events = _events(("void play_attention_fwd_kernel<0>(CUtensorMap_st, int)", True, 20, 1.0))
+    with pytest.raises(RuntimeError, match="none of them play_attention_fwd_kernel<2>"):
+        chip_smoke.kernel_device_ms(events, chip_smoke.CARRY_KERNEL)
+
+
+def test_lookup_ab_summary_keeps_each_checkouts_runs():
+    """tools/ab_lookup.py sets each checkout's runs side by side in their
+    order, leaves a case a version does not take empty, and reads
+    bit-equality per checkout."""
+    import sys
+
+    sys.path.insert(0, str(KERNELS.parents[1] / "tools"))
+    import ab_lookup
+
+    def run(host, bf16=None, equal=True):
+        out = {"1/16 float32": dict(bit_equal=True, host_us=host, event_us=host + 1)}
+        if bf16 is not None:
+            out["1/16 bfloat16"] = dict(bit_equal=equal, host_us=bf16, event_us=bf16 + 1)
+        return out
+
+    runs = [("parent", run(50.0)), ("change", run(20.0, 21.0)),
+            ("change", run(22.0, 23.0, equal=False)), ("parent", run(52.0))]
+    times, equal = ab_lookup.summarise(runs)
+    assert times["1/16 float32"] == {"parent host_us": [50.0, 52.0],
+                                     "parent event_us": [51.0, 53.0],
+                                     "change host_us": [20.0, 22.0],
+                                     "change event_us": [21.0, 23.0]}
+    assert times["1/16 bfloat16"]["parent host_us"] == []
+    assert times["1/16 bfloat16"]["change event_us"] == [22.0, 24.0]
+    assert equal == {"parent": True, "change": False}

@@ -229,3 +229,35 @@ def test_model_zoo_requires_a_card_unless_asked_for_the_cpu():
         tmodel_zoo("PPMStereoModel", params={}, kernel_size=5, iters=1)
     with pytest.raises(ValueError, match="unknown model"):
         tmodel_zoo("NoSuchModel", params={}, device="cpu")
+
+
+@pytest.mark.parametrize("test_mode", [True, False])
+def test_lookup_kernel_runs_in_test_mode_only(monkeypatch, test_mode):
+    """The model's test_mode chooses the lookup: a test-mode iteration calls
+    kernel 6's wrapper (`corr_lookup_kernel`, with the model's dtype as its
+    output dtype) once, a train-mode iteration the differentiable plain
+    lookup, never the kernel. 1 + 1 + 2 iterations over the three stages;
+    random weights, f32, a 3-frame 64x128 clip."""
+    calls = {"kernel": [], "plain": 0}
+    kernel, plain = tppm.corr_lookup_kernel, tppm.corr_lookup
+
+    def counted_kernel(pyramid, coords_x, radius, out_dtype):
+        calls["kernel"].append(out_dtype)
+        return kernel(pyramid, coords_x, radius, out_dtype=out_dtype)
+
+    def counted_plain(*args):
+        calls["plain"] += 1
+        return plain(*args)
+
+    monkeypatch.setattr(tppm, "corr_lookup_kernel", counted_kernel)
+    monkeypatch.setattr(tppm, "corr_lookup", counted_plain)
+    torch.manual_seed(0)
+    model = tppm.PPMStereo(iters=2, mixed_precision=False, test_mode=test_mode).eval()
+    video, _ = _clip(3, 64, 128)
+    with torch.no_grad():
+        out = model(torch.from_numpy(video[None, :, 0]), torch.from_numpy(video[None, :, 1]))
+    assert all(torch.isfinite(x).all() for x in out)
+    if test_mode:
+        assert calls == {"kernel": [torch.float32] * 4, "plain": 0}
+    else:
+        assert calls == {"kernel": [], "plain": 4}

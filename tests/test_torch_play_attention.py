@@ -286,3 +286,38 @@ def test_carry_kernel_matches_plain_on_card(b, lq, lk):
     assert diff.mean().item() <= 2**-8 * whole.abs().mean().item()
     with pytest.raises(ValueError, match="float32"):
         tpa.play_attention_carry(q, k, v, o.bfloat16(), m, l, SCALE)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lk", [(2, 65, 129), (3, 1000, 4999)])
+def test_carry_kernel_from_a_state_on_card(b, lq, lk):
+    """Kernel 5 (the carry mode of csrc/play_attention_fwd.cu) from a state
+    that is not empty (a plain hop over another block of keys), against the
+    plain hop on that state at the limits chip_smoke.py states; and two
+    launches from the same state give the same bits (no atomics). 2 x 65 x
+    129 leaves one query row past a 64-row consumer tile and one key past a
+    128-key tile."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU form")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    q, k, v, k0, v0 = (torch.randn(b, n, 128, generator=gen, device="cuda").bfloat16()
+                       for n in (lq, lk, lk, lk, lk))
+    empty = (torch.zeros(b, lq, 128, device="cuda"), torch.full((b, lq), -1e30, device="cuda"),
+             torch.zeros(b, lq, device="cuda"))
+    state = tpa.play_attention_carry_plain(q, k0, v0, *empty, SCALE)
+    ro, rm, rl = tpa.play_attention_carry_plain(q, k, v, *state, SCALE)
+    before = tpa.play_attention_carry.launches
+    runs = [tpa.play_attention_carry(q, k, v, *(x.clone() for x in state), SCALE)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert tpa.play_attention_carry.launches == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(*runs))
+    o, m, l = runs[0]
+    o_tol = 2**-7 * ro.abs().max().item() + 2**-8 * rl.max().item() * v.float().abs().max().item()
+    assert (o - ro).abs().max().item() <= o_tol
+    assert (o - ro).abs().mean().item() <= 2**-8 * ro.abs().mean().item()
+    assert (m - rm).abs().max().item() <= 2**-12
+    assert (l - rl).abs().max().item() <= 2**-16 * rl.max().item()
+    # the state mattered: the hop from the empty state is far from it
+    fresh = tpa.play_attention_carry_plain(q, k, v, *empty, SCALE)
+    assert (fresh[2] - rl).abs().max().item() > 2**-16 * rl.max().item()

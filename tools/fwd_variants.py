@@ -53,12 +53,12 @@ VARIANTS = {
     # 1 and 2): each waits for its turn before starting its products and hands
     # the turn on after committing them; consumer 0 goes first
     "ping_pong": [
-        ("template <bool WITH_LSE>\n__global__",
+        ("template <int MODE>\n__global__",
          "__device__ __forceinline__ void turn_wait(int c) {\n"
          "  asm volatile(\"bar.sync %0, 256;\\n\" ::\"r\"(1 + c) : \"memory\");\n}\n"
          "__device__ __forceinline__ void turn_pass(int c) {\n"
          "  asm volatile(\"bar.arrive %0, 256;\\n\" ::\"r\"(1 + c) : \"memory\");\n}\n\n"
-         "template <bool WITH_LSE>\n__global__"),
+         "template <int MODE>\n__global__"),
         ("    float alpha[2];\n",
          "    float alpha[2];\n    const int c = wg - 1;\n    if (c == 1) turn_pass(0);\n"),
         ("    pin(s);\n    wgmma_fence();\n    mma_rows_dot_rows(s, desc_q, BOX_BYTES, desc_k, BOX_BYTES);\n    wgmma_commit();\n",
