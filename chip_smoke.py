@@ -43,7 +43,26 @@ it stopped):
                disparity must equal the kernel's bit for bit
   7. profile   one more 10-frame window under torch.profiler: device time
                by layer, kernel 6's launches and the device's busy share
-  7b. ring     the main path again in 2 processes on the one card, its play
+  7a. modes    the main path's clip through `model_zoo` in each window mode
+               (strict, batch_windows=2, encoder_cache, fast_mode,
+               warm_start with warm_iters 10, warm_start with the encoder
+               cache), each run twice and the second timed: seconds per
+               window, frames per second, kernel 1's and 6's launches,
+               EPE/TEPE, peak memory; the strict modes held against the
+               strict run, the others to the EPE bound, and every warm
+               window after the first launching kernel 1 warm_iters times
+  7b. eval     the Dynamic Replica 40-frame protocol at 720x1280 (window 20,
+               20 iterations, bf16, the anchor) through the evaluate CLI's
+               `run_eval` and the port's preset, on a Dynamic Replica tree
+               written from a synthetic clip (PNG frames, float16 depth):
+               the aggregate metrics and fps, seconds and kernel launches
+               per window, peak memory and the reader's host seconds; the
+               reader's disparity against the clip's, run_eval's disparity
+               against a direct call of its predictor (bit for bit), EPE
+               under its bound; one steady 20-frame window profiled; kernel
+               1 at the 720p 1/4 shape (B.T 40, first and last rows) and
+               kernel 6 at the 720p pyramid against their plain versions
+  7c. ring     the main path again in 2 processes on the one card, its play
                steps as the ring play attention (kernel 5) over a gloo group
                staged through the host; kernel 5's and kernel 6's
                launches, the disparity and EPE against the main run; one
@@ -1481,11 +1500,20 @@ def phase_profile(main_run: dict, smi: str):
     """One steady 10-frame window under torch.profiler: device time by
     layer, the device's busy share, and the top kernels."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     video = torch.from_numpy(main_run["video"][5:5 + WINDOW]).cuda()
-    run = main_run["pred"].predictor._run_window
-    run(video[:, 0], video[:, 1])  # this shape is warm already; once more
+    return profile_window(main_run["pred"].predictor._run_window, video, f"{WINDOW}-frame",
+                          smi)
+
+
+def profile_window(run, video, label: str, smi: str, warm: bool = True):
+    """run(left, right) under torch.profiler, after one more call to warm
+    unless `warm` is False (the shape has just run)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if warm:
+        run(video[:, 0], video[:, 1])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1506,7 +1534,7 @@ def phase_profile(main_run: dict, smi: str):
                       if any(f in key for f in frags)), "elementwise and other")
         groups[group] += e.self_device_time_total / 1e3
     lookups = sum(e.count for e in kernels if "corr_lookup" in e.key)
-    log(f"profile of one {WINDOW}-frame window: wall {wall_ms:.1f} ms (profiler on), "
+    log(f"profile of one {label} window: wall {wall_ms:.1f} ms (profiler on), "
         f"device busy {device_ms:.1f} ms ({100 * device_ms / wall_ms:.1f}%), "
         f"{sum(e.count for e in kernels)} kernel launches ({lookups} of kernel 6), on {smi}")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -1515,6 +1543,451 @@ def phase_profile(main_run: dict, smi: str):
         log(f"  top kernel {e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:90]}")
     return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups,
                 launches=sum(e.count for e in kernels), lookup_launches=lookups)
+
+
+# ---------------------------------------------------------------- modes
+# the window modes of `model_zoo` on the main path's clip (320x512, window
+# 10, 10 iterations, bf16, the anchor): (name, model_zoo keyword arguments)
+WARM_ITERS = ITERS
+MODES = (
+    ("strict", {}),
+    ("batch_windows=2", {"batch_windows": 2}),
+    ("encoder_cache", {"encoder_cache": True}),
+    ("fast_mode", {"fast_mode": True}),
+    ("warm_start", {"warm_start": True, "warm_iters": WARM_ITERS}),
+    ("warm_start+encoder_cache", {"warm_start": True, "warm_iters": WARM_ITERS,
+                                  "encoder_cache": True}),
+)
+# batch_windows=2 and encoder_cache are strict by design, but the card need
+# not give the strict run's bits: cuDNN may take another algorithm for a
+# batch of two windows (or of the cache's fewer new frames), and in bf16 a
+# last-bit difference grows through 30 iterations (the ring's reordering
+# alone moved single pixels by up to 0.93 px, mean 5.8e-3 px, with the same
+# EPE). Limits: mean |disparity difference| STRICT_MEAN_TOL px and |EPE
+# difference| STRICT_EPE_TOL px; the largest difference is printed.
+STRICT_MEAN_TOL = 0.02
+STRICT_EPE_TOL = 0.01
+# the modes that are not strict by design are held to the main path's bound
+NON_PARITY = ("fast_mode", "warm_start", "warm_start+encoder_cache")
+_RUNNERS = ("_run_window", "_run_window_batch", "_run_window_cached", "_run_window_warm",
+            "_run_window_warm_cached")
+
+
+def timed_windows(pred) -> list:
+    """Patch every window runner of the predictor so that each call is
+    timed under torch.cuda.synchronize() and records kernel 1's and kernel
+    6's launches; returns the list the records go to."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    records = []
+    for name in _RUNNERS:
+        fn = getattr(pred.predictor, name)
+
+        def timed(*args, _fn=fn, _name=name):
+            torch.cuda.synchronize()
+            play, lookup = pa.play_attention.launches, kl.corr_lookup_kernel.launches
+            t0 = time.perf_counter()
+            out = _fn(*args)
+            torch.cuda.synchronize()
+            records.append(dict(runner=_name, s=time.perf_counter() - t0,
+                                windows=args[0].shape[0] if _name == "_run_window_batch" else 1,
+                                frames=args[0].shape[-4],
+                                play=pa.play_attention.launches - play,
+                                lookup=kl.corr_lookup_kernel.launches - lookup))
+            return out
+
+        setattr(pred.predictor, name, timed)
+    return records
+
+
+def sequence_metrics(disp, gt) -> dict:
+    """EPE, TEPE and bad-px of a (T, H, W, 1) disparity against (T, H, W),
+    every pixel valid (the port's evaluator metrics)."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.evaluation.metrics import eval_endpoint_error_sequence
+
+    gt = gt[..., None]
+    return eval_endpoint_error_sequence(disp, gt, np.ones_like(gt))
+
+
+def phase_modes(main_run: dict, smi: str):
+    """Every window mode of `model_zoo` on the main path's clip: each run
+    twice (the second timed and counted), with its seconds per window,
+    frames per second, kernel 1 and 6 launches, EPE/TEPE and peak memory;
+    the strict modes held against the strict run, the others to the EPE
+    bound, and every warm window after the first launching kernel 1
+    WARM_ITERS times."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    video, gt = main_run["video"], main_run["gt"]
+    params = load_npz(ANCHOR)
+    runs = {}
+    for name, kwargs in MODES:
+        pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params,
+                         **kwargs)
+        pred({"stereo_video": video})  # warm
+        records = timed_windows(pred)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+        t0 = time.perf_counter()
+        out = pred({"stereo_video": video})
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        play, lookup = pa.play_attention.launches, kl.corr_lookup_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        disp = out["disparity"]
+        if disp.shape != (CLIP_FRAMES, HEIGHT, WIDTH, 1) or not np.isfinite(disp).all():
+            raise RuntimeError(f"mode {name}: disparity of shape {disp.shape} or not finite")
+        metrics = sequence_metrics(disp, gt)
+        n_windows = sum(r["windows"] for r in records)
+        s_per_window = sum(r["s"] for r in records) / n_windows  # every window is warm
+        run = dict(wall_s=wall, fps=CLIP_FRAMES / wall, s_per_window=s_per_window,
+                   windows=n_windows, calls=[(r["runner"], round(r["s"], 4), r["play"],
+                                              r["lookup"]) for r in records],
+                   play_launches=play, lookup_launches=lookup, peak_gb=peak_gb,
+                   epe=metrics["epe_mean"], tepe=metrics["temp_epe_mean"],
+                   bad_1px=metrics["epe_bad_1px"])
+        log(f"mode {name} on {smi}: {n_windows} windows in {len(records)} calls, "
+            f"{s_per_window:.3f} s per window (the second run), {run['fps']:.2f} frames/s ({wall:.3f} s for "
+            f"{CLIP_FRAMES} frames), kernel 1 launches {play}, kernel 6 launches {lookup}, "
+            f"EPE {run['epe']:.4f} px, TEPE {run['tepe']:.4f} px, bad-1px "
+            f"{run['bad_1px']:.3f} %, peak {peak_gb:.2f} GB; calls (runner, s, kernel 1, "
+            f"kernel 6): {run['calls']}")
+        if play != lookup or play != sum(r["play"] for r in records):
+            raise RuntimeError(f"mode {name}: kernel 1 launched {play} times, kernel 6 {lookup}")
+        if name.startswith("warm_start"):
+            per_window = [r["play"] for r in records]
+            want = [LAUNCHES_PER_WINDOW] + [WARM_ITERS] * (len(records) - 1)
+            if per_window != want:
+                raise RuntimeError(f"mode {name}: kernel 1 launches per window {per_window}, "
+                                   f"expected {want}")
+        if name == "strict":
+            ref = disp
+        else:
+            diff = np.abs(disp - ref)
+            run.update(max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
+                       bit_equal=bool(np.array_equal(disp, ref)),
+                       epe_diff=abs(run["epe"] - runs["strict"]["epe"]))
+            log(f"  against strict: bit-equal {run['bit_equal']}, max |diff| "
+                f"{run['max_abs_diff']:.3e} px, mean {run['mean_abs_diff']:.3e} px, |EPE diff| "
+                f"{run['epe_diff']:.2e} px")
+            if name not in NON_PARITY and not (run["mean_abs_diff"] <= STRICT_MEAN_TOL
+                                               and run["epe_diff"] <= STRICT_EPE_TOL):
+                raise RuntimeError(f"mode {name} is strict by design but differs from the "
+                                   f"strict run by {run['mean_abs_diff']:.3e} px on average")
+        if not run["epe"] <= EPE_BOUND_PX:
+            raise RuntimeError(f"mode {name}: EPE {run['epe']:.3f} px exceeds {EPE_BOUND_PX}")
+        runs[name] = run
+        del pred, out
+        torch.cuda.empty_cache()
+    for name, run in runs.items():
+        n = len(window_frames(CLIP_FRAMES, WINDOW, fast=name == "fast_mode"))
+        if run["windows"] != n:  # 4 windows (2 in fast mode) at 20 frames, window 10
+            raise RuntimeError(f"mode {name} ran {run['windows']} windows, expected {n}")
+    return runs
+
+
+def window_frames(frames: int, k: int, fast: bool = False) -> list:
+    """The lengths of the sliding-window predictor's windows over a clip:
+    stride k // 2 (k in fast mode), a tail shorter than a stride skipped."""
+    stride = k if fast else k // 2
+    lengths = [min(k, frames - i) for i in range(0, frames, stride)]
+    return [n for i, n in enumerate(lengths) if fast or i == 0 or n >= stride]
+
+
+# ------------------------------------------------------------------ eval
+# the Dynamic Replica 40-frame protocol (ppmstereo_tpu_torch/configs/
+# eval_dynamic_replica_40_frames.yaml: 40 frames, window 20, 20 iterations)
+# at Dynamic Replica's 720x1280, through the evaluate CLI's run_eval with the
+# anchor in bf16, on a Dynamic Replica tree made from a synthetic clip
+EVAL_PRESET = REPO / "ppmstereo_tpu_torch" / "configs" / "eval_dynamic_replica_40_frames.yaml"
+EVAL_FRAMES, EVAL_HEIGHT, EVAL_WIDTH = 40, 720, 1280
+EVAL_WINDOW, EVAL_ITERS = 20, 20
+EVAL_LAUNCHES_PER_WINDOW = EVAL_ITERS // 2 + EVAL_ITERS // 2 + EVAL_ITERS
+EVAL_EPE_BOUND_PX = 1.0
+# focal length (NDC, 'ndc_norm_image_bounds') and baseline of the tree's
+# cameras: depth2disp scale = 1.4 * 1280 / 2 * 0.1 = 89.6 (depth 1.9-22 m)
+EVAL_FOCAL_NDC, EVAL_BASELINE = 1.4, 0.1
+# the reader's disparity is depth2disp / depth with depth stored as float16:
+# 2^-11 relative, and one f32 rounding of the quotient
+F16_DISP_RTOL = 2.0**-11 + 2.0**-22
+# kernel 1 at the 720p 1/4 stage (window 20 padded to 736 x 1280): B.T 40 as
+# batch_windows=2 would give it (k and v 3.0 GB each, past 2^31 bytes), held
+# against its plain version on the first and the last row
+EVAL_PLAY_SHAPE = (2 * EVAL_WINDOW, 184 * 320, 5 * 184 * 320)
+# kernel 6 at the 720p 1/4 pyramid: (B.T, H/4, W/4, W/4)
+EVAL_LOOKUP_SHAPE = (EVAL_WINDOW, 184, 320, 320)
+
+
+def write_dynamic_replica_tree(root: Path, video, disparity):
+    """`<root>/dynamic_replica_data/valid`: frame_annotations_valid.jgz, the
+    clip's left and right frames as PNGs and the left camera's float16 depth
+    PNGs (depth = depth2disp scale / disparity); the right camera's depth
+    entries name the left's files (the reader reads the left's only).
+    Returns the depth2disp scale."""
+    import gzip
+
+    import numpy as np
+
+    from ppmstereo_tpu_torch.data.png import write_png
+
+    split = root / "dynamic_replica_data" / "valid"
+    (split / "seq").mkdir(parents=True, exist_ok=True)
+    scale = EVAL_FOCAL_NDC * EVAL_WIDTH / 2 * EVAL_BASELINE
+    annots = []
+    for cam_i, cam in enumerate(("left", "right")):
+        for i in range(len(video)):
+            img_rel, depth_rel = f"seq/{cam}_{i:04d}.png", f"seq/depth_{i:04d}.png"
+            write_png(str(split / img_rel), video[i, cam_i].astype(np.uint8), level=1)
+            if cam == "left":
+                depth = (scale / disparity[i]).astype(np.float16)
+                write_png(str(split / depth_rel), depth.view(np.uint16), level=1)
+            annots.append({"sequence_name": "seq", "camera_name": cam,
+                           "image": {"path": img_rel, "size": [EVAL_HEIGHT, EVAL_WIDTH]},
+                           "depth": {"path": depth_rel},
+                           "viewpoint": {"focal_length": [EVAL_FOCAL_NDC, EVAL_FOCAL_NDC],
+                                         "principal_point": [0.0, 0.0],
+                                         "intrinsics_format": "ndc_norm_image_bounds",
+                                         "T": [0.0 if cam == "left" else EVAL_BASELINE, 0, 0]}})
+    with gzip.open(split / "frame_annotations_valid.jgz", "wt", encoding="utf8") as f:
+        json.dump(annots, f)
+    return scale
+
+
+def _play_720p(smi: str) -> dict:
+    """Kernel 1 at EVAL_PLAY_SHAPE: rows 0 and B.T - 1 against the plain
+    version (chunked) with phase kernels' limits and fault; times at B.T 40
+    and at the eval's 20."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    b, lq, lk = EVAL_PLAY_SHAPE
+    scale = pa.play_scale(128)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    q = (2 * torch.randn(b, lq, 128, generator=gen, device="cuda")).bfloat16()
+    k = (2 * torch.randn(b, lk, 128, generator=gen, device="cuda")).bfloat16()
+    v = torch.randn(b, lk, 128, generator=gen, device="cuda").bfloat16()
+    got = pa.play_attention(q, k, v, scale)
+    rows = torch.tensor([0, b - 1], device="cuda")
+    qr, kr, vr = q[rows], k[rows], v[rows]
+    ref = pa.play_attention_plain(qr, kr, vr, scale)
+    fault = pa.play_attention_plain(qr, kr, vr, 2 * scale)
+    o_tol = 2**-7 * ref.float().abs().max().item() + 2**-8 * vr.float().abs().max().item()
+    o_mean_tol = 2**-8 * ref.float().abs().mean().item()
+    label = f"720p 1/4 B.T={b} rows 0 and {b - 1}"
+    check = _agreement(label, "play_attention_fwd", got[rows], ref, fault, o_tol, o_mean_tol)
+    del ref, fault, qr, kr, vr
+    times = {}
+    for n in (b, b // 2):
+        ms = cuda_time_ms(lambda: pa.play_attention(q[:n], k[:n], v[:n], scale), 3)
+        flops, nbytes = pa.play_attention_cost(n, lq, lk)
+        bound, by = _bound(flops, nbytes)
+        times[n] = dict(ms=ms, tflops=flops / ms / 1e9, bound_ms=bound, bound_by=by)
+        log(f"play_attention_fwd at the 720p 1/4 shape B.T={n} Lq={lq} Lk={lk} on {smi}: "
+            f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms ({by})")
+    del q, k, v, got
+    torch.cuda.empty_cache()
+    return dict(shape=label, checks={"o": check}, times=times)
+
+
+def _lookup_720p(smi: str) -> dict:
+    """Kernel 6 at EVAL_LOOKUP_SHAPE in bf16 (the model's), against the
+    plain lookup bit for bit and within phase lookup's limits; its time."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
+
+    n, h, w1, w2 = EVAL_LOOKUP_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    f1 = torch.randn(n * h, 1, w1, 64, generator=gen, device="cuda")
+    f2 = torch.randn(n * h, 1, w2, 64, generator=gen, device="cuda")
+    pyramid = [c.reshape(n, h, w1, -1).to(torch.bfloat16) for c in build_corr_pyramid(f1, f2, 4)]
+    del f1, f2
+    cols = torch.arange(w1, device="cuda", dtype=torch.float32)
+    coords = cols - torch.rand(n, h, w1, generator=gen, device="cuda") * 0.4 * w2
+    got = kl.corr_lookup_kernel(pyramid, coords, out_dtype=torch.bfloat16)
+    want = corr_lookup(pyramid, coords).to(torch.bfloat16)
+    fault = _lookup_fault(pyramid, coords).to(torch.bfloat16)
+    label = f"720p 1/4 N={n} H={h} W1={w1} W2={w2} bfloat16 -> bfloat16"
+    check = _agreement(label, "corr_lookup", got, want, fault,
+                       2**-21 * want.float().abs().max().item(),
+                       2**-23 * want.float().abs().mean().item())
+    check["bit_equal"] = bool(torch.equal(got, want))
+    if not check["bit_equal"]:
+        raise RuntimeError(f"corr_lookup at {label} is not bit-equal to the plain lookup")
+
+    def kernel():
+        return kl.corr_lookup_kernel(pyramid, coords, out_dtype=torch.bfloat16)
+
+    def us(x):
+        return "not measured" if x is None else f"{x * 1e3:.1f} us"
+
+    ms = cuda_time_ms(kernel, 20)
+    device_ms = _device_ms(kernel, "corr_lookup", 10)
+    # on the main path the pyramid is read once an iteration, between other
+    # work: the flushed figure is the one a window sees
+    flush = torch.zeros(64 * 2**20, device="cuda")  # 256 MB, five times the L2
+    cold_ms = _device_ms(kernel, "corr_lookup", 10, flush=flush)
+    nbytes = kl.corr_lookup_bytes(pyramid, coords, out_dtype=torch.bfloat16)
+    bound, by = _bound(0.0, nbytes)
+    rate = None if cold_ms is None else nbytes / cold_ms / 1e6
+    log(f"corr_lookup at {label} on {smi}: {ms * 1e3:.1f} us per call, device time "
+        f"{us(device_ms)} with the L2 warm, {us(cold_ms)} flushed ({rate} GB/s of the "
+        f"{nbytes / 1e6:.1f} MB it must move), bound {bound * 1e3:.2f} us ({by}); bit-equal "
+        f"{check['bit_equal']}")
+    del pyramid, coords, got, want, fault, flush
+    torch.cuda.empty_cache()
+    return dict(shape=label, checks={"out": check}, ms=ms, device_ms=device_ms,
+                device_cold_ms=cold_ms, gb_per_s=rate, bound_ms=bound, bound_by=by)
+
+
+def phase_eval(smi: str):
+    """The Dynamic Replica 40-frame protocol at 720x1280 through the
+    evaluate CLI's run_eval: aggregate EPE/TEPE/bad-px and fps, seconds and
+    kernel 1 and 6 launches per window, peak memory, the reader's host
+    seconds; the reader's disparity against the clip's, run_eval's disparity
+    against a direct call of the same predictor, EPE under its bound; one
+    steady 20-frame window profiled; kernels 1 and 6 at the 720p shapes
+    against their plain versions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.cli import evaluate as cli
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.utils.config import load_yaml
+
+    kernels = dict(play=_play_720p(smi), lookup=_lookup_720p(smi))
+    t0 = time.perf_counter()
+    video, gt = synthetic_clip(EVAL_FRAMES, EVAL_HEIGHT, EVAL_WIDTH, seed=3)
+    clip_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        write_dynamic_replica_tree(Path(tmp), video, gt)
+        write_s = time.perf_counter() - t0
+        cfg = load_yaml(cli.DefaultConfig, str(EVAL_PRESET), overrides=[
+            f"dataset_root={tmp}", f"exp_dir={tmp}/out", f"MODEL.checkpoint={ANCHOR}"])
+        if (cfg.sample_len, cfg.MODEL.kernel_size, cfg.MODEL.iters) != (
+                EVAL_FRAMES, EVAL_WINDOW, EVAL_ITERS):
+            raise RuntimeError(f"the preset is not the 40-frame protocol: {cfg}")
+        t0 = time.perf_counter()
+        sample = cli.build_dataset(cfg)[0]
+        reader_s = time.perf_counter() - t0
+        read_disp = -sample["disp"][:, 0, :, :, 0]
+        reader_err = float(np.abs(read_disp - gt).max())
+        rel_err = float((np.abs(read_disp - gt) / gt).max())
+        log(f"eval tree: clip {clip_s:.1f} s, PNG writes {write_s:.1f} s; the reader took "
+            f"{reader_s:.2f} s of host time for {EVAL_FRAMES} frame pairs and depth maps; its "
+            f"disparity within {rel_err:.3e} relative ({reader_err:.3e} px) of the clip's "
+            f"(float16 depth: limit {F16_DISP_RTOL:.3e})")
+        if sample["img"].shape != (EVAL_FRAMES, 2, EVAL_HEIGHT, EVAL_WIDTH, 3) \
+                or not rel_err <= F16_DISP_RTOL or sample["valid"].min() != 1.0:
+            raise RuntimeError("the Dynamic Replica reader does not give the clip back")
+        if not np.array_equal(sample["img"], video):
+            raise RuntimeError("the Dynamic Replica reader's frames differ from the clip's")
+
+        # run_eval, with the zoo's predictor captured for the direct call
+        captured = {}
+        zoo = cli.model_zoo
+
+        def capturing_zoo(*args, **kwargs):
+            pred = zoo(*args, **kwargs)
+            captured.update(pred=pred, records=timed_windows(pred))
+
+            def recorded(batch):
+                out = pred(batch)
+                captured["disparity"] = out["disparity"]
+                return out
+
+            return _Recorded(pred, recorded)
+
+        cli.model_zoo = capturing_zoo
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+        try:
+            t0 = time.perf_counter()
+            results = cli.run_eval(cfg)
+            eval_s = time.perf_counter() - t0
+        finally:
+            cli.model_zoo = zoo
+        play, lookup = pa.play_attention.launches, kl.corr_lookup_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        dumped = json.loads((Path(tmp) / "out" / "result_dynamicreplica_final.json").read_text())
+    agg = results["aggregate"]
+    records = captured["records"]
+    window_s = [r["s"] for r in records]
+    log(f"eval (Dynamic Replica, {EVAL_FRAMES} frames at {EVAL_HEIGHT}x{EVAL_WIDTH}, window "
+        f"{EVAL_WINDOW}, {EVAL_ITERS} iterations, bf16) on {smi}: run_eval {eval_s:.1f} s; EPE {agg['epe_mean']:.4f} px, "
+        f"TEPE {agg['temp_epe_mean']:.4f} px, bad-0.5/1/2/3px {agg['epe_bad_0.5px']:.3f} / "
+        f"{agg['epe_bad_1px']:.3f} / {agg['epe_bad_2px']:.3f} / {agg['epe_bad_3px']:.3f} %, "
+        f"fps {agg['fps']:.3f}; seconds per window {[round(s, 3) for s in window_s]}; "
+        f"kernel 1 launches {play} ({[r['play'] for r in records]}), kernel 6 launches "
+        f"{lookup}; peak {peak_gb:.2f} GB")
+    stride = EVAL_WINDOW // 2
+    frames = window_frames(EVAL_FRAMES, EVAL_WINDOW)  # 20, 20, 20, 10
+    want = [EVAL_LAUNCHES_PER_WINDOW] * len(frames)
+    if [r["play"] for r in records] != want or [r["lookup"] for r in records] != want \
+            or [r["frames"] for r in records] != frames:
+        raise RuntimeError(f"eval windows {[(r['frames'], r['play'], r['lookup']) for r in records]}"
+                           f", expected {frames} frames, {want[0]} launches each")
+    if dumped != json.loads(json.dumps(results)):
+        raise RuntimeError("run_eval's JSON dump differs from its results")
+    if not agg["epe_mean"] <= EVAL_EPE_BOUND_PX:
+        raise RuntimeError(f"eval EPE {agg['epe_mean']:.3f} px exceeds {EVAL_EPE_BOUND_PX} px")
+
+    # the same predictor called directly on the same video: bit for bit
+    pred, eval_disp = captured["pred"], captured["disparity"]
+    n_before = len(records)
+    t0 = time.perf_counter()
+    direct = pred({"stereo_video": video})["disparity"]
+    direct_s = time.perf_counter() - t0
+    equal = bool(np.array_equal(direct, eval_disp))
+    log(f"a direct call of the same predictor: {direct_s:.1f} s, seconds per window "
+        f"{[round(r['s'], 3) for r in records[n_before:]]}, disparity bit-equal to "
+        f"run_eval's {equal}")
+    if not equal:
+        raise RuntimeError("run_eval's disparity differs from a direct call of its predictor")
+    direct_window_s = [r["s"] for r in records[n_before:]]
+    metrics = sequence_metrics(direct, gt)
+    profile = profile_window(pred.predictor._run_window,
+                             torch.from_numpy(video[stride:stride + EVAL_WINDOW]).cuda(),
+                             f"{EVAL_WINDOW}-frame 720p", smi, warm=False)
+    del pred, captured
+    torch.cuda.empty_cache()
+    return dict(aggregate=agg, window_s=window_s, direct_window_s=direct_window_s,
+                play_launches=play, lookup_launches=lookup, peak_gb=peak_gb, reader_s=reader_s,
+                write_s=write_s, eval_s=eval_s, reader_rel_err=rel_err, bit_equal=equal,
+                direct_epe=metrics["epe_mean"], profile=profile, kernels=kernels)
+
+
+class _Recorded:
+    """A predictor whose calls go through `call` and whose other attributes
+    (load_params, ...) are the wrapped one's."""
+
+    def __init__(self, inner, call):
+        self.inner, self._call = inner, call
+
+    def __call__(self, batch):
+        return self._call(batch)
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
 
 
 TRAIN_DIR = REPO / "build" / "chip_smoke_train"
@@ -1741,6 +2214,15 @@ def kernel_record(key: str, name: str, source: str, replaces: str, rows: list, l
     }
 
 
+def _summary_720p(row: dict) -> dict:
+    """A kernel's check and times at the 720p shapes (phase eval)."""
+    check = next(iter(row["checks"].values()))
+    out = {k: v for k, v in row.items() if k not in ("checks",)}
+    out.update(max_share=check["max_abs_err"] / check["tol"],
+               mean_share=check["mean_abs_err"] / check["mean_tol"])
+    return out
+
+
 def _shape_summary(row: dict) -> dict:
     """One shape of a kernel record: its times and its worst check as a
     share of the limit (max and mean readings); the log has every check."""
@@ -1769,6 +2251,10 @@ def main() -> None:
         main_run = phase_main(smi)
     with phase("profile"):
         phase_profile(main_run, smi)
+    with phase("modes"):
+        modes_run = phase_modes(main_run, smi)
+    with phase("eval"):
+        eval_run = phase_eval(smi)
     with phase("ring"):
         ring_run = phase_ring(main_run, small_run, smi)
     with phase("train"):
@@ -1779,6 +2265,7 @@ def main() -> None:
     # 6 on the inference path's and the ring path's runs (rank 0; test
     # mode), summed with the training path's (0: train mode runs the plain
     # lookup). Each path is driven with its counts set to 0 just before.
+    # Kernels 1 and 6 in the modes and eval paths' runs sit beside them.
     lookup = (main_run["lookup_launches"] + ring_run["lookup_launches"]
               + train_run["launches"]["corr_lookup"])
     launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"],
@@ -1795,6 +2282,11 @@ def main() -> None:
     records[4]["ring"] = ring_run["readings"]
     # measured on rank 0 in the ring phase (None: the profiler saw nothing)
     records[4]["ms_per_window_and_rank"] = ring_run["carry_window_ms"]
+    for record, key, kernel in ((records[0], "play_launches", "play"),
+                                (records[5], "lookup_launches", "lookup")):
+        record["launches_modes"] = {name: run[key] for name, run in modes_run.items()}
+        record["launches_eval"] = eval_run[key]
+        record["at_720p"] = _summary_720p(eval_run["kernels"][kernel])
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -1,29 +1,38 @@
-"""The training data of the one-card PPMStereo run (counterpart of
-ppmstereo_tpu/data/datasets.py: the `StereoSequenceDataset` base,
-`SyntheticStereoDataset` and `fetch_dataloader`).
+"""Stereo video datasets (counterpart of ppmstereo_tpu/data/datasets.py):
+the `StereoSequenceDataset` base, the evaluation readers (SceneFlow's
+FlyingThings3D test split, Sintel, Dynamic Replica, Infinigen, KITTI depth),
+`SyntheticStereoDataset` and the training loader `fetch_dataloader`.
 
 Ground-truth conventions are the JAX package's: disparity is stored as
-negative-x flow (np.stack([-disp, 0])), and after augmentation
-valid = |disp| < 512 and disp != 0.
+negative-x flow (np.stack([-disp, 0])); depth ground truth becomes
+disparity as depth2disp_scale / depth (focal length in pixels times the
+baseline); a dense dataset's valid = |disp| < 512 and disp != 0, a sparse
+one keeps its reader's validity.
 
 Samples are channels-last numpy dicts:
   img   (T, 2, H, W, 3) float32 in [0, 255]
   disp  (T, 1, H, W, 1) float32 (negative-x disparity of the left camera)
   valid (T, 1, H, W)    float32
 
-The readers of SceneFlow and Dynamic Replica are not ported yet; where
-their data is on disk, `fetch_dataloader` raises instead of training on
-something else.
+The training readers (Sintel's training clips, VKITTI2, South Kensington)
+and the training mixture are not ported yet: where SceneFlow or Dynamic
+Replica's train split is on disk, `fetch_dataloader` raises instead of
+training on something else.
 """
 
 from __future__ import annotations
 
 import copy
+import gzip
+import json
 import logging
 import os.path as osp
+from collections import defaultdict
+from glob import glob
 
 import numpy as np
 
+from ppmstereo_tpu_torch.data import frame_utils
 from ppmstereo_tpu_torch.data.augmentor import SequenceDispFlowAugmentor
 
 
@@ -59,40 +68,320 @@ def gaussian_blur_sigma3(img: np.ndarray) -> np.ndarray:
 
 
 class StereoSequenceDataset:
-    """Base: a sample list, the augmentor and the ground-truth conventions.
-    Subclasses implement `_load_sample(sample) -> {"img", "disp", "valid"}`
-    with img (T, 2, H, W, 3) uint8 and disp (T, 1, H, W, 2) float32."""
+    """Base: a sample list, the readers, the augmentor and the ground-truth
+    conventions. A sample is a mapping with "image" {"left", "right"}: lists
+    of frame paths, and either "disparity" {"left"}: paths read by `reader`
+    (default `frame_utils.read_gen`; a reader may return (disparity,
+    valid)), or "depth" {"left"} with "depth2disp_scale". Subclasses with
+    other samples override `_load_sample(sample) -> {"img", "disp",
+    "valid"}` with img (T, 2, H, W, 3) uint8 and disp (T, 1, H, W, 2)
+    float32.
 
-    def __init__(self, aug_params=None):
+    sparse: the ground truth is sparse, and its validity is the reader's,
+    not recomputed from the disparity (the sparse augmentor is not ported:
+    a sparse dataset takes no aug_params)."""
+
+    def __init__(self, aug_params=None, sparse: bool = False, reader=None):
         self.augmentor = None
+        self.sparse = sparse
         if aug_params is not None and "crop_size" in aug_params:
+            if sparse:
+                raise NotImplementedError("the sparse augmentor is not ported yet (ROADMAP)")
             self.augmentor = SequenceDispFlowAugmentor(**aug_params)
+        self.disparity_reader = reader or frame_utils.read_gen
+        self.depth_reader = frame_utils.read_depth_any
         self.sample_list: list = []
+        self.extra_info: list = []
+        self.depth_eps = 1e-5
+        self.rng = np.random.default_rng(0)  # train-split clip strides
 
     def _load_sample(self, sample) -> dict:
-        raise NotImplementedError
+        t = len(sample["image"]["left"])
+        imgs = np.stack([np.stack([frame_utils.read_image(sample["image"][cam][i])
+                                   for cam in ("left", "right")]) for i in range(t)])
+        disp = valid = None
+        if "disparity" in sample and "left" in sample["disparity"]:
+            ds, vs = [], []
+            for i in range(t):
+                d = self.disparity_reader(sample["disparity"]["left"][i])
+                d, v = d if isinstance(d, tuple) else (d, d < 512)
+                d = np.asarray(d, np.float32)
+                ds.append(np.stack([-d, np.zeros_like(d)], axis=-1))
+                vs.append(np.asarray(v, np.float32))
+            disp, valid = np.stack(ds)[:, None], np.stack(vs)[:, None]
+        elif "depth" in sample and "left" in sample["depth"]:
+            scale = sample["depth2disp_scale"]
+            ds, vs = [], []
+            for i in range(t):
+                depth = self.depth_reader(sample["depth"]["left"][i])
+                bad = depth < self.depth_eps
+                d = np.where(bad, 0.0, scale / np.where(bad, self.depth_eps, depth))
+                ds.append(np.stack([-d, np.zeros_like(d)], axis=-1).astype(np.float32))
+                vs.append(((d < 512) & ~bad).astype(np.float32))
+            disp, valid = np.stack(ds)[:, None], np.stack(vs)[:, None]
+        return {"img": imgs, "disp": disp, "valid": valid}
 
     def __getitem__(self, index, rng: np.random.Generator | None = None) -> dict:
         """Sample `index`, augmented with `rng`. The loader passes one
         generator per sample, seeded from (seed, epoch, index); with None
         the augmentor draws from its own generator, as the JAX package's
-        dataset does (the reference path of the parity tests)."""
+        dataset does (the reference path of the parity tests). A sample
+        without ground truth has "img" only."""
         out = self._load_sample(self.sample_list[index % len(self.sample_list)])
-        imgs, disp = out["img"], out["disp"]
+        imgs, disp, valid = out["img"], out["disp"], out["valid"]
         if self.augmentor is not None:
             imgs, disp = self.augmentor(imgs, disp, rng)
-        disp = np.asarray(disp, np.float32)
-        valid = ((np.abs(disp[..., 0]) < 512) & (disp[..., 0] != 0)).astype(np.float32)
-        return {"img": imgs.astype(np.float32), "disp": disp[..., :1], "valid": valid}
+        res = {"img": imgs.astype(np.float32)}
+        if disp is not None:
+            disp = np.asarray(disp, np.float32)
+            if not self.sparse:
+                valid = (np.abs(disp[..., 0]) < 512) & (disp[..., 0] != 0)
+            res["disp"] = disp[..., :1]
+            res["valid"] = np.asarray(valid, np.float32)
+        return res
 
     def __mul__(self, v: int):
         """The dataset repeated v times (the training mixture's x50)."""
         clone = copy.copy(self)
         clone.sample_list = v * self.sample_list
+        clone.extra_info = v * self.extra_info
         return clone
 
     def __len__(self):
         return len(self.sample_list)
+
+
+def _clip() -> defaultdict:
+    """An empty sample: {"image"|"disparity"|"depth": {camera: [paths]}}."""
+    return defaultdict(lambda: defaultdict(list))
+
+
+class SequenceSceneFlowDataset(StereoSequenceDataset):
+    """FlyingThings3D, Monkaa and Driving: PNG frames and PFM disparity,
+    each clip of `sample_len` frames also added time-reversed.
+    things_test=True reads the 40 FlyingThings3D TEST sequences that a
+    fixed permutation (seed 1000) picks."""
+
+    def __init__(self, aug_params=None, root="datasets/SceneFlow",
+                 dstype="frames_finalpass", sample_len=1, things_test=False,
+                 add_things=True, add_monkaa=True, add_driving=True):
+        super().__init__(aug_params)
+        self.root, self.dstype, self.sample_len = root, dstype, sample_len
+        if things_test:
+            self._add_things("TEST")
+        else:
+            if add_things:
+                self._add_things("TRAIN")
+            if add_monkaa:
+                self._add_sequences(osp.join(root, "Monkaa", dstype, "*/{cam}/"))
+            if add_driving:
+                self._add_sequences(osp.join(root, "Driving", dstype, "*/*/*/{cam}/"))
+
+    def _scan(self, pattern):
+        image_paths = {cam: sorted(glob(pattern.format(cam=cam))) for cam in ("left", "right")}
+        disparity_paths = {cam: [p.replace(self.dstype, "disparity") for p in paths]
+                           for cam, paths in image_paths.items()}
+        return image_paths, disparity_paths
+
+    def _collect(self, image_paths, disparity_paths, seq_idx):
+        images = {cam: sorted(glob(osp.join(image_paths[cam][seq_idx], "*.png")))
+                  for cam in ("left", "right")}
+        disparities = {cam: sorted(glob(osp.join(disparity_paths[cam][seq_idx], "*.pfm")))
+                       for cam in ("left", "right")}
+        self._append_sample(images, disparities)
+
+    def _add_things(self, split="TRAIN"):
+        image_paths, disparity_paths = self._scan(
+            osp.join(self.root, "FlyingThings3D", self.dstype, split, "*/*/{cam}/"))
+        val_idxs = set(np.random.RandomState(1000).permutation(len(image_paths["left"]))[:40])
+        for seq_idx in range(len(image_paths["left"])):
+            if (seq_idx in val_idxs) == (split == "TEST"):
+                self._collect(image_paths, disparity_paths, seq_idx)
+        logging.info(f"SceneFlow/Things[{split}]: {len(self.sample_list)} samples")
+
+    def _add_sequences(self, pattern):
+        image_paths, disparity_paths = self._scan(pattern)
+        for seq_idx in range(len(image_paths["left"])):
+            self._collect(image_paths, disparity_paths, seq_idx)
+
+    def _append_sample(self, images, disparities):
+        seq_len = len(images["left"])
+        for ref_idx in range(0, seq_len - self.sample_len):
+            fwd, bwd = _clip(), _clip()
+            for cam in ("left", "right"):
+                for idx in range(ref_idx, ref_idx + self.sample_len):
+                    fwd["image"][cam].append(images[cam][idx])
+                    fwd["disparity"][cam].append(disparities[cam][idx])
+                    bwd["image"][cam].append(images[cam][seq_len - idx - 1])
+                    bwd["disparity"][cam].append(disparities[cam][seq_len - idx - 1])
+            self.sample_list += [fwd, bwd]
+
+
+class SequenceSintelStereo(StereoSequenceDataset):
+    """Sintel stereo training sequences, one sample a sequence: packed-PNG
+    disparity, valid where not occluded (sparse)."""
+
+    def __init__(self, dstype="clean", aug_params=None, root="datasets/sintel_stereo"):
+        super().__init__(aug_params, sparse=True, reader=frame_utils.read_disp_sintel)
+        self.dstype = dstype
+        image_root = osp.join(root, "training")
+        for seq_path in sorted(glob(osp.join(image_root, f"{dstype}_left/*"))):
+            seq = osp.basename(seq_path)
+            sample = _clip()
+            for img_l in sorted(glob(osp.join(seq_path, "*.png"))):
+                frame = osp.basename(img_l)
+                sample["image"]["left"].append(img_l)
+                sample["image"]["right"].append(osp.join(image_root, f"{dstype}_right", seq, frame))
+                sample["disparity"]["left"].append(osp.join(image_root, "disparities", seq, frame))
+            if sample["image"]["left"]:
+                self.sample_list.append(sample)
+                self.extra_info.append(seq)
+
+
+class DynamicReplicaDataset(StereoSequenceDataset):
+    """Dynamic Replica: `<root>/<split>/frame_annotations_<split>.jgz`, a
+    gzip JSON list of frame annotations (sequence, camera, image and depth
+    paths, viewpoint), float16 PNG depth. The train split takes a clip every
+    3 frames with a random temporal stride in [1, 5]; other splits take
+    contiguous chunks of sample_len frames, at most only_first_n_samples a
+    sequence."""
+
+    def __init__(self, aug_params=None, root="datasets/dynamic_replica_data", split="train",
+                 sample_len=-1, only_first_n_samples=-1):
+        super().__init__(aug_params)
+        self.root, self.sample_len, self.split = root, sample_len, split
+        path = osp.join(root, split, f"frame_annotations_{split}.jgz")
+        with gzip.open(path, "rt", encoding="utf8") as f:
+            frame_annots = json.load(f)
+        seq_annot = defaultdict(lambda: defaultdict(list))
+        for annot in frame_annots:
+            seq_annot[annot["sequence_name"]][annot["camera_name"]].append(annot)
+
+        for seq in sorted(seq_annot):
+            try:
+                files = _clip()
+                for cam in ("left", "right"):
+                    for frame in seq_annot[seq][cam]:
+                        im_path = osp.join(root, split, frame["image"]["path"])
+                        if not osp.isfile(im_path):
+                            raise FileNotFoundError(im_path)
+                        files["image"][cam].append(im_path)
+                        files["depth"][cam].append(osp.join(root, split, frame["depth"]["path"]))
+                        files["viewpoint"][cam].append(frame["viewpoint"])
+                        files["image_size"][cam].append(frame["image"].get("size"))
+                seq_len = len(files["image"]["left"])
+                logging.info(f"seq {seq}: {seq_len} frames")
+                scale = self._d2d_scale(files)
+                if split == "train":
+                    for ref_idx in range(0, seq_len, 3):
+                        step = 1 if sample_len == 1 else int(self.rng.integers(1, 6))
+                        if ref_idx + step * sample_len < seq_len:
+                            self._add(files, range(ref_idx, ref_idx + step * sample_len, step),
+                                      scale)
+                else:
+                    step = sample_len if sample_len > 0 else seq_len
+                    for n, ref_idx in enumerate(range(0, seq_len, step)):
+                        self._add(files, range(ref_idx, min(ref_idx + step, seq_len)), scale)
+                        self.extra_info.append(seq)
+                        if 0 < only_first_n_samples <= n + 1:
+                            break
+            except (KeyError, IndexError, OSError, ValueError) as e:
+                # a sequence with a missing frame or a malformed annotation is
+                # skipped, as the JAX reader does
+                logging.warning(f"skipping sequence {seq}: {e!r}")
+
+    def _add(self, files, frames, scale: float) -> None:
+        sample = _clip()
+        for cam in ("left", "right"):
+            for idx in frames:
+                for k in ("image", "depth"):
+                    sample[k][cam].append(files[k][cam][idx])
+        sample["depth2disp_scale"] = scale
+        self.sample_list.append(sample)
+
+    @staticmethod
+    def _d2d_scale(files) -> float:
+        """Focal length in pixels times the baseline, from the first frame's
+        viewpoints. NDC -> pixels: fx_px = fx_ndc * W / 2 for
+        'ndc_norm_image_bounds', fx_ndc * min(W, H) / 2 for 'ndc_isotropic';
+        the baseline T_right[0] - T_left[0] (OpenCV's tvec negates x)."""
+        vp_l, vp_r = files["viewpoint"]["left"][0], files["viewpoint"]["right"][0]
+        size = (files.get("image_size", {}).get("left") or [None])[0]
+        h, w = (float(s) for s in (size or (720, 1280)))  # Dynamic Replica's (H, W)
+        fmt = str(vp_l.get("intrinsics_format", "ndc_norm_image_bounds")).lower()
+        if fmt == "ndc_norm_image_bounds":
+            rescale_x = w / 2.0
+        elif fmt == "ndc_isotropic":
+            rescale_x = min(w, h) / 2.0
+        else:
+            raise ValueError(f"unknown intrinsics_format: {fmt}")
+        focal_px = float(vp_l["focal_length"][0]) * rescale_x
+        return focal_px * (float(vp_r["T"][0]) - float(vp_l["T"][0]))
+
+
+class InfinigenStereoVideoDataset(StereoSequenceDataset):
+    """Infinigen renders: `<scene>/frames/Image/camera_{0,1}/*.png`, depth
+    `frames/Depth/camera_0/*.npy`, and the camera's K and baseline in
+    `frames/camview/camera_0/*.npz` (baseline 0.075 when absent)."""
+
+    def __init__(self, aug_params=None, root="datasets/infinigen", sample_len=-1):
+        super().__init__(aug_params)
+        self.sample_len = sample_len
+        for scene in sorted(glob(osp.join(root, "*"))):
+            lefts = sorted(glob(osp.join(scene, "frames/Image/camera_0/*.png")))
+            rights = sorted(glob(osp.join(scene, "frames/Image/camera_1/*.png")))
+            depths = sorted(glob(osp.join(scene, "frames/Depth/camera_0/*.npy")))
+            if not lefts or len(lefts) != len(rights):
+                continue
+            cam_files = sorted(glob(osp.join(scene, "frames/camview/camera_0/*.npz")))
+            scale = 1.0
+            if cam_files:
+                cam = np.load(cam_files[0])
+                k = cam["K"] if "K" in cam else None
+                baseline = float(cam["baseline"]) if "baseline" in cam else 0.075
+                scale = (float(k[0, 0]) if k is not None else 1.0) * baseline
+            step = sample_len if sample_len > 0 else len(lefts)
+            for ref in range(0, len(lefts), step):
+                sample = _clip()
+                for idx in range(ref, min(ref + step, len(lefts))):
+                    sample["image"]["left"].append(lefts[idx])
+                    sample["image"]["right"].append(rights[idx])
+                    if depths:
+                        sample["depth"]["left"].append(depths[idx])
+                sample["depth2disp_scale"] = scale
+                self.sample_list.append(sample)
+                self.extra_info.append(osp.basename(scene))
+
+
+class KITTIDepthDataset(StereoSequenceDataset):
+    """KITTI's sparse LiDAR depth: one sample a drive,
+    `<root>/<train|val>/<drive>/proj_depth/groundtruth/image_02/*.png` with
+    the frames under `<root>/raw/<date>/<drive>/image_0{2,3}/data/`; the
+    focal length 721.5377 px and the 0.54 m baseline (sparse)."""
+
+    KITTI_BASELINE = 0.54  # meters, rectified stereo rig
+
+    def __init__(self, aug_params=None, root="datasets/kitti_depth", split="train",
+                 sample_len=-1):
+        super().__init__(aug_params, sparse=True)
+        self.sample_len, self.split = sample_len, split
+        split_dir = "train" if split == "train" else "val"
+        for drive in sorted(glob(osp.join(root, split_dir, "*"))):
+            name = osp.basename(drive)
+            raw = osp.join(root, "raw", name[:10], name)
+            sample = _clip()
+            for depth_l in sorted(glob(osp.join(drive, "proj_depth/groundtruth/image_02/*.png"))):
+                frame = osp.basename(depth_l)
+                img_l = osp.join(raw, "image_02/data", frame)
+                img_r = osp.join(raw, "image_03/data", frame)
+                if osp.isfile(img_l) and osp.isfile(img_r):
+                    sample["image"]["left"].append(img_l)
+                    sample["image"]["right"].append(img_r)
+                    sample["depth"]["left"].append(depth_l)
+            if sample["image"]["left"]:
+                sample["depth2disp_scale"] = 721.5377 * self.KITTI_BASELINE
+                self.sample_list.append(sample)
+                self.extra_info.append(name)
 
 
 class SyntheticStereoDataset(StereoSequenceDataset):
@@ -109,6 +398,7 @@ class SyntheticStereoDataset(StereoSequenceDataset):
         self.height, self.width = height, width
         self._seed = seed
         self.sample_list = list(range(num_seqs))
+        self.extra_info = [f"synthetic_{i}" for i in range(num_seqs)]
 
     def _load_sample(self, sample):
         rng = np.random.default_rng(self._seed + int(sample))
@@ -151,16 +441,15 @@ def fetch_dataloader(crop_size=(320, 512), sample_len=5, batch_size=2, num_worke
     pass) + Dynamic Replica (train), x50, shuffled, with its fallback to the
     synthetic dataset when neither is on disk. The port trains on the
     synthetic fallback only: where either dataset's root exists it raises
-    (their readers come with the evaluation slice of the port)."""
+    (the training mixture of their readers is not ported yet)."""
     from ppmstereo_tpu_torch.data.loader import PrefetchLoader
 
     for root in (sceneflow_root, osp.join(dynamic_replica_root, "train")):
         if osp.isdir(root):
             raise NotImplementedError(
-                f"{root} exists, but the port has no reader for it yet: the SceneFlow "
-                "and Dynamic Replica readers come with the port's evaluation slice "
-                "(ROADMAP). Move the directory or pass other roots to train on the "
-                "synthetic dataset.")
+                f"{root} exists, but the port has no reader for it in training yet: the "
+                "training mixture of SceneFlow and Dynamic Replica is later work (ROADMAP). "
+                "Move the directory or pass other roots to train on the synthetic dataset.")
     aug_params = {
         "crop_size": crop_size,
         "min_scale": -0.2,

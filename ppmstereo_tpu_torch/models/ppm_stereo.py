@@ -1,9 +1,10 @@
 """PPMStereo: pick-and-play memory video stereo, in test and train mode.
 
 Counterpart of ppmstereo_tpu/models/ppm_stereo.py (`PPMUpdateLoop`,
-`PPMStereo`) for cold windows: a cascaded 1/16 -> 1/8 -> 1/4 refinement
+`PPMStereo`): a cold window runs a cascaded 1/16 -> 1/8 -> 1/4 refinement
 with an SST attention block, a quality-scored top-k frame memory ("pick")
-and attention over the picked frames ("play"). The refinement loop is a
+and attention over the picked frames ("play"); a warm window (`flow_init`)
+runs the 1/4 stage alone. The refinement loop is a
 Python loop. The play attention runs through the hand-written CUDA kernels
 on a card (`kernels/play_attention.py`), its backward included. Test mode
 runs the pyramid lookup as kernel 6 (`kernels/corr_lookup.py`, which writes
@@ -196,19 +197,21 @@ class PPMUpdateLoop(nn.Module):
         return flow_up[..., :1], unc_up
 
     def forward(self, pyramid, coords0, query_pe, key_aug, sim_score,
-                flow, net, inp, motion_hidden, picks: list | None = None):
+                flow, net, inp, motion_hidden, picks: list | None = None,
+                iters: int | None = None):
         """Returns (flow, flow_up, net, motion_hidden, last uncertainty,
         predictions, uncertainties); the last two are (iters, B, T, H, W, 1)
         at full resolution in train mode and None in test mode.
 
         picks: when a list is given, each iteration's top-k frame indices
-        are appended to it (the tests compare them with the JAX model's)."""
+        are appended to it (the tests compare them with the JAX model's).
+        iters: this call's iteration count (default: the stage's)."""
         b, t, _, _, _ = flow.shape
         stage = (pyramid, coords0, query_pe, key_aug, sim_score, inp)
         strive = torch.ones(b, t, t, device=flow.device)
         uncertainty = mask = None
         preds, uncs = [], []
-        for _ in range(self.iters):
+        for _ in range(self.iters if iters is None else iters):
             picked: list = []
             if self.collect_preds:
                 flow, net, motion_hidden, strive, uncertainty, mask = checkpoint(
@@ -318,16 +321,47 @@ class PPMStereo(nn.Module):
         inp = (feat[..., HIDDEN_DIM:] + cnet_feat[..., HIDDEN_DIM:]) / 2.0
         return torch.tanh(net), F.relu(inp)
 
-    def forward(self, image1, image2, picks: list | None = None):
+    def forward(self, image1, image2, flow_init=None, feats: dict | None = None,
+                warm_iters: int | None = None, picks: list | None = None):
         """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty)
         in test mode, (predictions, uncertainties) in train mode.
 
+        feats: the per-frame features of `encode_frames` for these frames
+        (the encoder cache of the sliding-window predictor assembles them
+        from two windows); the encoders are then skipped, and the forward is
+        otherwise the same.
+
+        flow_init: (B,T,H,W,1) full-resolution signed x-flow (negative
+        disparity), the warm start. It is resized to the 1/4 grid, the
+        motion state is seeded by the 1/16 block's `init_motion_hidden_state`
+        at the 1/4 grid, and only the 1/4 loop runs, `warm_iters` iterations
+        (default: the model's iters) with the same weights; SST and the
+        1/16 and 1/8 stages do not run (the JAX package's warm branch).
+        Train mode then returns the 1/4 loop's predictions only.
+
         picks: optional list that collects every iteration's top-k indices,
         stage by stage."""
-        feats = self.encode_frames(image1, image2)
+        if warm_iters is not None and flow_init is None:
+            raise ValueError("warm_iters applies to a warm start: pass flow_init")
+        if feats is None:
+            feats = self.encode_frames(image1, image2)
         fmap1, fmap2 = feats["fmap1"], feats["fmap2"]
         b, t, h4, w4, _ = fmap1.shape
         net, inp = self._context(fmap1, feats["cnet4"])
+
+        if flow_init is not None:
+            fi = flow_init.float()
+            fi = torch.cat([fi, torch.zeros_like(fi)], dim=-1)
+            flow4 = (h4 / fi.shape[2]) * interp_bilinear(fi, (h4, w4))
+            # only the 1/16 block owns the motion state's init conv (the later
+            # stages inherit the state in the cold cascade)
+            mh4 = self.update_block16.update_block.init_motion_hidden_state(inp)
+            _, flow_up4, _, _, unc_last, p4, u4 = self.update_block04(
+                *self._stage_inputs(2, fmap1, fmap2, inp), flow4, net, inp, mh4,
+                picks=picks, iters=warm_iters)
+            if not self.test_mode:
+                return p4, u4
+            return flow_up4[..., :1], interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
 
         f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
         net16, inp16 = self._context(f1_16, feats["cnet16"])
