@@ -26,7 +26,10 @@ it stopped):
                the three stages' pyramids and a ragged one, each in f32 and
                bf16 with f32 and bf16 output, bit-equal required (and
                within a few-ulp limit a fault fails); times beside four
-               grid_samples, device times with the L2 warm and flushed
+               grid_samples, device times with the L2 warm and flushed;
+               the instances of radius 2, 3 and 4 with 3 and 4 levels on the
+               1/4 pyramid in bf16 and f32, bit-equal, with their device
+               times (the shipped instance beside the radius-4-only kernel's)
   4. small parity  the whole CUDA inference path against the port's CPU path
                on a small clip in f32 (the CPU path is the one the tests
                hold against the JAX package)
@@ -50,7 +53,18 @@ it stopped):
                window, frames per second, kernel 1's and 6's launches,
                EPE/TEPE, peak memory; the strict modes held against the
                strict run, the others to the EPE bound, and every warm
-               window after the first launching kernel 1 warm_iters times
+               window after the first launching kernel 1 warm_iters times;
+               whether each strict mode is bit-equal to strict is printed,
+               and encoder_cache must be (tools/window_bits.py locates
+               where batch_windows=2 parts from strict)
+  7a'. config  two non-default PPMStereoConfig's at full width (A: no
+               context net, no attention, top_k = the window; B: the 2-D
+               convex upsample, a 3-level radius-3 lookup, two SST rounds),
+               untrained, one strict 320x512 window each: seconds, kernels
+               1 and 6 launched 20 times each, the disparity against the
+               same window with every kernel swapped for its plain function
+               (a wrong lookup must fail the limit); a play head dim other
+               than 128 raises and launches nothing
   7b. eval     the Dynamic Replica 40-frame protocol at 720x1280 (window 20,
                20 iterations, bf16, the anchor) through the evaluate CLI's
                `run_eval` and the port's preset, on a Dynamic Replica tree
@@ -77,7 +91,13 @@ it stopped):
                steps on one batch of the synthetic fallback, then 2 on fresh
                batches; check finite losses, a falling loss on the fixed
                batch, moving parameters and a frozen ConvNeXt, and each
-               training kernel's launches per step; one more step profiled
+               training kernel's launches per step; one more step profiled;
+               then the reference recipe: the train CLI with --config (a
+               YAML preset of TrainConfig()) on the SceneFlow + Dynamic
+               Replica mixture of two trees written from synthetic clips
+               (batches from both), and train(enable_eval=True,
+               save_callback=...) for 2 steps: the callback at the save,
+               the in-training evaluation on kernels 1 and 6
 
 Every failure raises, so the exit code is not 0. The second-to-last lines
 are the card's `nvidia-smi` name and power limit and a JSON line with one
@@ -706,7 +726,12 @@ def _device_ms(fn, name: str, reps: int, flush=None) -> float:
     hits = [e for e in prof.key_averages() if name in e.key
             and e.device_type == torch.autograd.DeviceType.CUDA]
     total = sum(e.self_device_time_total for e in hits) / 1e3
-    return total / reps if hits else None
+    # per launch the profiler saw: the first profile of a process may miss
+    # launches, which divided by reps read short (3.1 us at 1/4, bf16)
+    seen = sum(e.count for e in hits)
+    if seen and seen != reps:
+        log(f"  profiler: {seen} of {reps} launches of {name!r} seen")
+    return total / seen if seen else None
 
 
 def _lookup_fault(pyramid, coords_x, radius: int = 4):
@@ -831,9 +856,70 @@ def phase_lookup(smi: str):
                              device_cold_ms=cold_ms, grid_sample_max_abs_diff=lib_err))
             del pyramid, wide, got, want, fault, grids, lib
         del f1, f2, pyr32
+    instances = _lookup_instances(flush, smi)
     del flush
     torch.cuda.empty_cache()
-    return rows
+    return rows, instances
+
+
+# kernel 6's instances beyond the shipped radius 4 and 4 levels: the radii
+# and level counts PPMStereoConfig's corr_radius and corr_levels take on the
+# main path's 1/4 pyramid (configuration B of phase config: radius 3, 3 levels)
+LOOKUP_INSTANCES = tuple((r, n) for r in (2, 3, 4) for n in (3, 4))
+# the device times of the shipped instance (radius 4, 4 levels, bf16 in and
+# out) at the 320x512 1/4 pyramid when the kernel took radius 4 only, in ms:
+# the L2 warm and flushed (PERF.md §6)
+LOOKUP_RADIUS4_ONLY_MS = (0.0138, 0.0198)
+
+
+def _lookup_instances(flush, smi: str) -> list:
+    """Kernel 6 at each of LOOKUP_INSTANCES on the 320x512 1/4 pyramid, bf16
+    and f32 (pyramid and output of one dtype), bit-equal to the plain lookup
+    required; device times with the L2 warm and flushed."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
+
+    def us(x):
+        return "not measured" if x is None else f"{x * 1e3:.1f} us"
+
+    _, n, h, w1, w2 = LOOKUP_SHAPES[0]
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    f1 = torch.randn(n * h, 1, w1, 64, generator=gen, device="cuda")
+    f2 = torch.randn(n * h, 1, w2, 64, generator=gen, device="cuda")
+    pyr32 = [c.reshape(n, h, w1, -1).contiguous() for c in build_corr_pyramid(f1, f2, 4)]
+    cols = torch.arange(w1, device="cuda", dtype=torch.float32)
+    coords = cols - torch.rand(n, h, w1, generator=gen, device="cuda") * 0.4 * w2
+    out = []
+    for radius, levels in LOOKUP_INSTANCES:
+        for dtype in (torch.bfloat16, torch.float32):
+            pyramid = [c.to(dtype) for c in pyr32[:levels]]
+            got = kl.corr_lookup_kernel(pyramid, coords, radius, out_dtype=dtype)
+            want = corr_lookup(pyramid, coords, radius).to(dtype)
+            equal = bool(torch.equal(got, want))
+
+            def kernel():
+                return kl.corr_lookup_kernel(pyramid, coords, radius, out_dtype=dtype)
+
+            warm = _device_ms(kernel, "corr_lookup", 20)
+            cold = _device_ms(kernel, "corr_lookup", 20, flush=flush)
+            nbytes = kl.corr_lookup_bytes(pyramid, coords, radius, out_dtype=dtype)
+            bound, _ = _bound(0.0, nbytes)
+            at = f"radius {radius}, {levels} levels, {str(dtype)[6:]}"
+            note = ""
+            if (radius, levels, dtype) == (4, 4, torch.bfloat16):
+                note = (f" (the radius-4-only kernel: {LOOKUP_RADIUS4_ONLY_MS[0] * 1e3:.1f} us "
+                        f"warm, {LOOKUP_RADIUS4_ONLY_MS[1] * 1e3:.1f} us flushed)")
+            log(f"corr_lookup instance {at} at 320x512 1/4 on {smi}: device time {us(warm)} "
+                f"with the L2 warm, {us(cold)} flushed{note}; bound {bound * 1e3:.2f} us; "
+                f"bit-equal {equal}")
+            if not equal:
+                raise RuntimeError(f"corr_lookup at {at} is not bit-equal to the plain lookup")
+            out.append(dict(radius=radius, levels=levels, dtype=str(dtype)[6:],
+                            device_ms=warm, device_cold_ms=cold, bound_ms=bound,
+                            bit_equal=equal))
+    return out
 
 
 def _bound(flops: float, nbytes: float) -> tuple[float, str]:
@@ -910,7 +996,8 @@ def phase_small_parity():
     flat = load_npz(ANCHOR)
     outs = {}
     for run, dev in (("cpu", "cpu"), ("cuda", "cuda"), ("fault", "cpu")):
-        model = ppm_stereo.PPMStereo(iters=4, mixed_precision=False, test_mode=True)
+        model = ppm_stereo.PPMStereo(ppm_stereo.PPMStereoConfig(mixed_precision=False), iters=4,
+                                     test_mode=True)
         load_flax_params(model, flat)
         model.to(dev).eval()
         if run == "fault":
@@ -975,12 +1062,12 @@ def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
     import torch
 
     from ppmstereo_tpu_torch.kernels import play_attention as pa
-    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
     from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState
     from ppmstereo_tpu_torch.train.step import to_device, train_step
     from ppmstereo_tpu_torch.utils.weights import load_flax_params
 
-    model = PPMStereo(iters=2, mixed_precision=False, test_mode=False)
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=2, test_mode=False)
     load_flax_params(model, flat)
     model.to(dev)
     state = TrainState(model, TrainOptimizer(model, num_steps=1000))
@@ -1251,7 +1338,7 @@ def _ring_child(rank: int, world: int, video, fault_frames: int, small_left, sma
 
     from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.kernels import play_attention as pa
-    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMUpdateLoop
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig, PPMUpdateLoop
     from ppmstereo_tpu_torch.models.zoo import model_zoo
     from ppmstereo_tpu_torch.parallel import ring_attention as ra
     from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
@@ -1295,7 +1382,7 @@ def _ring_child(rank: int, world: int, video, fault_frames: int, small_left, sma
         PPMUpdateLoop._play = play
 
     small = {}
-    model = PPMStereo(iters=4, mixed_precision=False, test_mode=True, mesh=mesh)
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=4, test_mode=True, mesh=mesh)
     load_flax_params(model, load_npz(ANCHOR))
     model.cuda().eval()
     for run in ("sound", "fault"):
@@ -1558,9 +1645,10 @@ MODES = (
     ("warm_start+encoder_cache", {"warm_start": True, "warm_iters": WARM_ITERS,
                                   "encoder_cache": True}),
 )
-# batch_windows=2 and encoder_cache are strict by design, but the card need
-# not give the strict run's bits: cuDNN may take another algorithm for a
-# batch of two windows (or of the cache's fewer new frames), and in bf16 a
+# batch_windows=2 and encoder_cache are strict by design. The encoder cache
+# gives the strict run's bits (the zoo's predictor encodes each frame in the
+# same call in every window), and must. A batch of two windows need not: the
+# encoders of a batch part first (tools/window_bits.py), and in bf16 a
 # last-bit difference grows through 30 iterations (the ring's reordering
 # alone moved single pixels by up to 0.93 px, mean 5.8e-3 px, with the same
 # EPE). Limits: mean |disparity difference| STRICT_MEAN_TOL px and |EPE
@@ -1569,6 +1657,7 @@ STRICT_MEAN_TOL = 0.02
 STRICT_EPE_TOL = 0.01
 # the modes that are not strict by design are held to the main path's bound
 NON_PARITY = ("fast_mode", "warm_start", "warm_start+encoder_cache")
+BIT_EQUAL_MODES = ("encoder_cache",)
 _RUNNERS = ("_run_window", "_run_window_batch", "_run_window_cached", "_run_window_warm",
             "_run_window_warm_cached")
 
@@ -1686,6 +1775,9 @@ def phase_modes(main_run: dict, smi: str):
                                                and run["epe_diff"] <= STRICT_EPE_TOL):
                 raise RuntimeError(f"mode {name} is strict by design but differs from the "
                                    f"strict run by {run['mean_abs_diff']:.3e} px on average")
+            if name in BIT_EQUAL_MODES and not run["bit_equal"]:
+                raise RuntimeError(f"mode {name} is not bit-equal to the strict run (max "
+                                   f"|diff| {run['max_abs_diff']:.3e} px)")
         if not run["epe"] <= EPE_BOUND_PX:
             raise RuntimeError(f"mode {name}: EPE {run['epe']:.3f} px exceeds {EPE_BOUND_PX}")
         runs[name] = run
@@ -1704,6 +1796,217 @@ def window_frames(frames: int, k: int, fast: bool = False) -> list:
     stride = k if fast else k // 2
     lengths = [min(k, frames - i) for i in range(0, frames, stride)]
     return [n for i, n in enumerate(lengths) if fast or i == 0 or n >= stride]
+
+
+# ---------------------------------------------------------------- config
+# two non-default PPMStereoConfig's at full width (phase config): A, the JAX
+# package's multi-device configuration (no context net, no attention, every
+# frame of the window picked), and B (the 2-D convex upsample, a 3-level
+# radius-3 lookup, two SST rounds). No checkpoint exists for them: the
+# weights are the port's initialisation from a seed, with every play blend
+# `beta` set to 1 and the SST time embedding drawn (both start at zero, and
+# the play step would not reach the output)
+CONFIGS = (
+    ("A", {"use_cnet": False, "attention_type": None, "top_k": WINDOW}),
+    ("B", {"use_convex_3d": False, "corr_levels": 3, "corr_radius": 3, "sst_depth": 2}),
+)
+CONFIG_SEED = 11
+# one strict window through the kernels against the same window with every
+# kernel swapped for its plain function (bf16): kernel 6 is bit-equal to
+# its plain version, kernel 1 differs from its plain play by a bf16 ulp in
+# places, and that grows through 20 iterations. The weights are untrained,
+# so the disparity's scale is not known beforehand: the limit is on the mean
+# |difference| relative to the plain run's mean |disparity|. A wrong lookup
+# (its fractional weights swapped; through the plain functions) must fail
+# it; the max |difference| is printed. An untrained model barely reads its
+# play step (the values' tokens reversed moved configuration A by 8.5e-4 of
+# its disparity, kernel 1 against the plain play 4.5e-4), so kernel 1 is
+# also held call by call against the plain play on the same inputs, with
+# phase kernels' limits, and kernel 6 bit for bit. Untrained q and k give a
+# near-uniform softmax, which no fault of the play moves past those limits
+# in every call (a doubled scale was caught in 10 of 20, the keys' second
+# half dropped in 15): the fault reading is taken at each play shape of the
+# window on random inputs, as phase kernels takes it
+CONFIG_REL_TOL = 0.01
+
+
+def _play_at_shape(label: str, b: int, lq: int, lk: int) -> dict:
+    """Kernel 1 at (B, Lq, Lk) on random inputs against its plain version,
+    with phase kernels' limits and its fault (the softmax scale doubled)."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    scale = pa.play_scale(128)
+    gen = torch.Generator(device="cuda").manual_seed(b * 7 + lq)
+    q = (2 * torch.randn(b, lq, 128, generator=gen, device="cuda")).bfloat16()
+    k = (2 * torch.randn(b, lk, 128, generator=gen, device="cuda")).bfloat16()
+    v = torch.randn(b, lk, 128, generator=gen, device="cuda").bfloat16()
+    got = pa.play_attention(q, k, v, scale)
+    ref = pa.play_attention_plain(q, k, v, scale)
+    fault = pa.play_attention_plain(q, k, v, 2 * scale)
+    o_tol = 2**-7 * ref.float().abs().max().item() + 2**-8 * v.float().abs().max().item()
+    return _agreement(f"{label} B={b} Lq={lq} Lk={lk}", "play_attention_fwd", got, ref, fault,
+                      o_tol, 2**-8 * ref.float().abs().mean().item())
+
+
+def _play_blends_on(model, seed: int) -> None:
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith("aggregator.beta"):
+                p.fill_(1.0)
+            elif name.endswith("time_embed"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+
+
+def phase_config(main_run: dict, smi: str):
+    """Each of CONFIGS at 320x512: one strict window (frames 5-14, window
+    10, 10 iterations, bf16) through `model_zoo` with the kernels (the
+    second of two runs timed and counted: kernels 1 and 6 launched
+    LAUNCHES_PER_WINDOW times each); once more with every kernel call held
+    against its plain function on the same inputs; then with every kernel
+    swapped for its plain function, and that run with a wrong lookup."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models import ppm_stereo
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.ops.corr import corr_lookup
+
+    clip = torch.from_numpy(main_run["video"][5:5 + WINDOW]).cuda()
+    gt = main_run["gt"][5:5 + WINDOW]
+    plain = {"play_attention": pa.play_attention_plain,
+             "corr_lookup_kernel": lambda pyr, x, radius, out_dtype: corr_lookup(
+                 pyr, x, radius).to(out_dtype)}
+    fault = dict(plain, corr_lookup_kernel=lambda pyr, x, radius, out_dtype: _lookup_fault(
+        pyr, x, radius).to(out_dtype))
+    calls = []  # (kernel, share of the max limit, of the mean limit, fault caught)
+
+    def checked_play(q, k, v, scale):
+        out = pa.play_attention(q, k, v, scale)
+        want = pa.play_attention_plain(q, k, v, scale).float()
+        tol = 2**-7 * want.abs().max().item() + 2**-8 * v.float().abs().max().item()
+        mean_tol = 2**-8 * want.abs().mean().item()
+        diff = (out.float() - want).abs()
+        calls.append(("play", diff.max().item() / tol, diff.mean().item() / mean_tol,
+                      tuple(k.shape[:2]) + (q.shape[1],)))
+        return out
+
+    def checked_lookup(pyr, x, radius, out_dtype):
+        out = kl.corr_lookup_kernel(pyr, x, radius, out_dtype=out_dtype)
+        equal = torch.equal(out, corr_lookup(pyr, x, radius).to(out_dtype))
+        calls.append(("lookup", 0.0 if equal else float("inf"), 0.0, None))
+        return out
+
+    checked = {"play_attention": checked_play, "corr_lookup_kernel": checked_lookup}
+    runs = {}
+    for name, kwargs in CONFIGS:
+        pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, seed=CONFIG_SEED,
+                         **kwargs)
+        _play_blends_on(pred.model, CONFIG_SEED)
+        run = pred.predictor._run_window
+        out = {}
+        calls.clear()
+        for label, swap in (("kernels", {}), ("checked", checked), ("plain", plain),
+                            ("fault", fault)):
+            saved = {k: getattr(ppm_stereo, k) for k in swap}
+            try:
+                for k, fn in swap.items():
+                    setattr(ppm_stereo, k, fn)
+                if label == "kernels":
+                    run(clip[:, 0], clip[:, 1])  # warm
+                torch.cuda.synchronize()
+                pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+                t0 = time.perf_counter()
+                disp = run(clip[:, 0], clip[:, 1])[0]
+                torch.cuda.synchronize()
+                seconds = time.perf_counter() - t0
+            finally:
+                for k, fn in saved.items():
+                    setattr(ppm_stereo, k, fn)
+            out[label] = dict(disp=disp.float().cpu().numpy()[..., 0], s=seconds,
+                              play=pa.play_attention.launches,
+                              lookup=kl.corr_lookup_kernel.launches)
+        plays = [c for c in calls if c[0] == "play"]
+        lookups = [c for c in calls if c[0] == "lookup"]
+        worst = (max(c[1] for c in plays), max(c[2] for c in plays))
+        shapes = sorted({c[3] for c in plays})  # (B.T, Lk, Lq) of each stage
+        random_checks = [_play_at_shape(f"config {name}", b, lq, lk)
+                         for b, lk, lq in shapes]
+        k_run, p_run, f_run = out["kernels"], out["plain"], out["fault"]
+        diff = np.abs(k_run["disp"] - p_run["disp"])
+        scale = float(np.abs(p_run["disp"]).mean())
+        rel = float(diff.mean()) / scale
+        fault_rel = float(np.abs(f_run["disp"] - p_run["disp"]).mean()) / scale
+        epe = float(np.abs(np.abs(k_run["disp"]) - gt).mean())
+        runs[name] = dict(kwargs=kwargs, s=k_run["s"], plain_s=p_run["s"],
+                          play_launches=k_run["play"], lookup_launches=k_run["lookup"],
+                          max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
+                          mean_abs_disp=scale, rel_diff=rel, fault_rel_diff=fault_rel, epe=epe,
+                          play_calls_worst_share=worst, lookup_calls_bit_equal=all(
+                              c[1] == 0.0 for c in lookups), play_shapes=shapes,
+                          play_random_checks=random_checks)
+        log(f"config {name} {kwargs} at {HEIGHT}x{WIDTH}, a strict window of {WINDOW} frames, "
+            f"{ITERS} iterations, bf16, on {smi}: {k_run['s']:.3f} s (plain functions "
+            f"{p_run['s']:.3f} s); kernel 1 launches {k_run['play']}, kernel 6 launches "
+            f"{k_run['lookup']}; against the plain functions: max |diff| {diff.max():.3e} px, "
+            f"mean {diff.mean():.3e} px = {rel:.2e} of the mean |disparity| {scale:.4f} px "
+            f"(limit {CONFIG_REL_TOL}); a wrong lookup: {fault_rel:.2e}; EPE {epe:.3f} px "
+            f"(untrained weights); call by call: {len(plays)} kernel 1 calls against the "
+            f"plain play at worst {worst[0]:.2f} / {worst[1]:.2f} of the max / mean limits, "
+            f"{len(lookups)} kernel 6 calls bit-equal {runs[name]['lookup_calls_bit_equal']}; "
+            f"kernel 1 at the play shapes (B.T, Lk, Lq) {shapes} on random inputs, each within "
+            f"its limits with the doubled-scale fault caught")
+        if (k_run["play"], k_run["lookup"]) != (LAUNCHES_PER_WINDOW,) * 2 or \
+                (p_run["play"], p_run["lookup"]) != (0, 0):
+            raise RuntimeError(f"config {name}: kernel launches {k_run['play']}, "
+                               f"{k_run['lookup']} (plain run: {p_run['play']}, "
+                               f"{p_run['lookup']}), expected {LAUNCHES_PER_WINDOW} and 0")
+        if not np.isfinite(k_run["disp"]).all() or not rel <= CONFIG_REL_TOL:
+            raise RuntimeError(f"config {name}: the kernels' window differs from the plain "
+                               f"functions' by {rel:.2e} of the mean |disparity|")
+        if not fault_rel > CONFIG_REL_TOL:
+            raise RuntimeError(f"config {name}: a wrong lookup moves the window by "
+                               f"{fault_rel:.2e} of the mean |disparity| only; the limit "
+                               "cannot catch it")
+        if (len(plays), len(lookups)) != (LAUNCHES_PER_WINDOW,) * 2 or not (
+                worst[0] <= 1 and worst[1] <= 1 and runs[name]["lookup_calls_bit_equal"]):
+            raise RuntimeError(f"config {name}: kernel 1 at worst {worst} of its limits over "
+                               f"{len(plays)} calls, kernel 6 bit-equal "
+                               f"{runs[name]['lookup_calls_bit_equal']} over {len(lookups)}")
+        del pred
+        torch.cuda.empty_cache()
+    _head_dim_refused(smi)
+    return runs
+
+
+def _head_dim_refused(smi: str) -> None:
+    """The play kernels take head dim 128 only (PPMStereoConfig refuses
+    another context_dim when it is built): on the card a head dim of 64 or
+    256 raises in kernel 1 and in the training path and launches nothing."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+
+    counters = (pa.play_attention, pa.play_attention_fwd_res)
+    before = [c.launches for c in counters]
+    for d in (64, 256):
+        x = torch.zeros(2, 64, d, device="cuda", dtype=torch.bfloat16)
+        for q in (x, x.clone().requires_grad_()):
+            try:
+                pa.play_attention(q, x, x, 0.1)
+            except ValueError:
+                continue
+            raise RuntimeError(f"the play took head dim {d} on the card")
+    if [c.launches for c in counters] != before:
+        raise RuntimeError("a refused head dim launched a play kernel")
+    log(f"play head dims 64 and 256 raise on {smi}, with and without a gradient; "
+        "no play kernel launched")
 
 
 # ------------------------------------------------------------------ eval
@@ -1730,21 +2033,22 @@ EVAL_PLAY_SHAPE = (2 * EVAL_WINDOW, 184 * 320, 5 * 184 * 320)
 EVAL_LOOKUP_SHAPE = (EVAL_WINDOW, 184, 320, 320)
 
 
-def write_dynamic_replica_tree(root: Path, video, disparity):
-    """`<root>/dynamic_replica_data/valid`: frame_annotations_valid.jgz, the
-    clip's left and right frames as PNGs and the left camera's float16 depth
-    PNGs (depth = depth2disp scale / disparity); the right camera's depth
-    entries name the left's files (the reader reads the left's only).
-    Returns the depth2disp scale."""
+def write_dynamic_replica_tree(root: Path, video, disparity, split_name: str = "valid"):
+    """`<root>/dynamic_replica_data/<split_name>`:
+    frame_annotations_<split_name>.jgz, the clip's left and right frames as
+    PNGs and the left camera's float16 depth PNGs (depth = depth2disp scale
+    / disparity); the right camera's depth entries name the left's files
+    (the reader reads the left's only). Returns the depth2disp scale."""
     import gzip
 
     import numpy as np
 
     from ppmstereo_tpu_torch.data.png import write_png
 
-    split = root / "dynamic_replica_data" / "valid"
+    split = root / "dynamic_replica_data" / split_name
     (split / "seq").mkdir(parents=True, exist_ok=True)
-    scale = EVAL_FOCAL_NDC * EVAL_WIDTH / 2 * EVAL_BASELINE
+    height, width = video.shape[2:4]
+    scale = EVAL_FOCAL_NDC * width / 2 * EVAL_BASELINE
     annots = []
     for cam_i, cam in enumerate(("left", "right")):
         for i in range(len(video)):
@@ -1754,13 +2058,13 @@ def write_dynamic_replica_tree(root: Path, video, disparity):
                 depth = (scale / disparity[i]).astype(np.float16)
                 write_png(str(split / depth_rel), depth.view(np.uint16), level=1)
             annots.append({"sequence_name": "seq", "camera_name": cam,
-                           "image": {"path": img_rel, "size": [EVAL_HEIGHT, EVAL_WIDTH]},
+                           "image": {"path": img_rel, "size": [height, width]},
                            "depth": {"path": depth_rel},
                            "viewpoint": {"focal_length": [EVAL_FOCAL_NDC, EVAL_FOCAL_NDC],
                                          "principal_point": [0.0, 0.0],
                                          "intrinsics_format": "ndc_norm_image_bounds",
                                          "T": [0.0 if cam == "left" else EVAL_BASELINE, 0, 0]}})
-    with gzip.open(split / "frame_annotations_valid.jgz", "wt", encoding="utf8") as f:
+    with gzip.open(split / f"frame_annotations_{split_name}.jgz", "wt", encoding="utf8") as f:
         json.dump(annots, f)
     return scale
 
@@ -1768,7 +2072,7 @@ def write_dynamic_replica_tree(root: Path, video, disparity):
 def _play_720p(smi: str) -> dict:
     """Kernel 1 at EVAL_PLAY_SHAPE: rows 0 and B.T - 1 against the plain
     version (chunked) with phase kernels' limits and fault; times at B.T 40
-    and at the eval's 20."""
+    and at the eval's 20, and SDPA's forward at the eval's 20."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import play_attention as pa
@@ -1776,6 +2080,7 @@ def _play_720p(smi: str) -> dict:
     b, lq, lk = EVAL_PLAY_SHAPE
     scale = pa.play_scale(128)
     gen = torch.Generator(device="cuda").manual_seed(7)
+    F = torch.nn.functional
     q = (2 * torch.randn(b, lq, 128, generator=gen, device="cuda")).bfloat16()
     k = (2 * torch.randn(b, lk, 128, generator=gen, device="cuda")).bfloat16()
     v = torch.randn(b, lk, 128, generator=gen, device="cuda").bfloat16()
@@ -1797,6 +2102,14 @@ def _play_720p(smi: str) -> dict:
         times[n] = dict(ms=ms, tflops=flops / ms / 1e9, bound_ms=bound, bound_by=by)
         log(f"play_attention_fwd at the 720p 1/4 shape B.T={n} Lq={lq} Lk={lk} on {smi}: "
             f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), bound {bound:.3f} ms ({by})")
+    # the library call at the eval's B.T 20, with the kernel's warm-up and repeats
+    n = b // 2
+    lib_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+        q[:n, None], k[:n, None], v[:n, None], scale=scale), 3)
+    times[n]["library_ms"] = lib_ms
+    log(f"SDPA forward at the 720p 1/4 shape B.T={n} on {smi}: {lib_ms:.3f} ms "
+        f"({pa.play_attention_cost(n, lq, lk)[0] / lib_ms / 1e9:.1f} TFLOP/s); kernel 1 "
+        f"{times[n]['ms']:.3f} ms")
     del q, k, v, got
     torch.cuda.empty_cache()
     return dict(shape=label, checks={"o": check}, times=times)
@@ -1804,7 +2117,8 @@ def _play_720p(smi: str) -> dict:
 
 def _lookup_720p(smi: str) -> dict:
     """Kernel 6 at EVAL_LOOKUP_SHAPE in bf16 (the model's), against the
-    plain lookup bit for bit and within phase lookup's limits; its time."""
+    plain lookup bit for bit and within phase lookup's limits; its time and
+    the four grid_samples'."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import corr_lookup as kl
@@ -1836,6 +2150,15 @@ def _lookup_720p(smi: str) -> dict:
         return "not measured" if x is None else f"{x * 1e3:.1f} us"
 
     ms = cuda_time_ms(kernel, 20)
+    # the library route with the kernel's warm-up and repeats: four
+    # grid_samples on the pyramid widened to f32 (see phase lookup)
+    wide, grids = [c.float() for c in pyramid], []
+    for lvl, corr in enumerate(pyramid):
+        pos = (coords / 2.0**lvl).reshape(-1, 1, 1) + torch.arange(-4, 5, device="cuda")
+        gx = 2.0 * pos / (corr.shape[-1] - 1) - 1.0
+        grids.append(torch.stack([gx, torch.zeros_like(gx)], dim=-1))
+    lib_ms = cuda_time_ms(lambda: _grid_sample_lookup(wide, grids), 20)
+    del wide, grids
     device_ms = _device_ms(kernel, "corr_lookup", 10)
     # on the main path the pyramid is read once an iteration, between other
     # work: the flushed figure is the one a window sees
@@ -1846,12 +2169,13 @@ def _lookup_720p(smi: str) -> dict:
     rate = None if cold_ms is None else nbytes / cold_ms / 1e6
     log(f"corr_lookup at {label} on {smi}: {ms * 1e3:.1f} us per call, device time "
         f"{us(device_ms)} with the L2 warm, {us(cold_ms)} flushed ({rate} GB/s of the "
-        f"{nbytes / 1e6:.1f} MB it must move), bound {bound * 1e3:.2f} us ({by}); bit-equal "
-        f"{check['bit_equal']}")
+        f"{nbytes / 1e6:.1f} MB it must move), bound {bound * 1e3:.2f} us ({by}); 4 x "
+        f"grid_sample {lib_ms * 1e3:.1f} us per call; bit-equal {check['bit_equal']}")
     del pyramid, coords, got, want, fault, flush
     torch.cuda.empty_cache()
     return dict(shape=label, checks={"out": check}, ms=ms, device_ms=device_ms,
-                device_cold_ms=cold_ms, gb_per_s=rate, bound_ms=bound, bound_by=by)
+                device_cold_ms=cold_ms, gb_per_s=rate, bound_ms=bound, bound_by=by,
+                library_ms=lib_ms)
 
 
 def phase_eval(smi: str):
@@ -2097,6 +2421,198 @@ def phase_train(smi: str):
                 peak_gb=peak_gb, profile=profile)
 
 
+# the reference recipe (phase train, second part): the train CLI with a YAML
+# preset on the SceneFlow + Dynamic Replica mixture, written from synthetic
+# clips at the crop plus a margin (the augmentor's smallest scale needs 8
+# pixels more than the crop); then train() with the in-training evaluation
+# and a save callback
+RECIPE_STEPS = 4
+RECIPE_SCENEFLOW_FRAMES, RECIPE_DR_FRAMES = 8, 20
+RECIPE_PRESET = """# the shipped TrainConfig, written out, for a short run
+model_name: ppmstereo
+batch_size: 2
+lr: 0.0003
+sample_len: 5
+train_iters: 10
+mixed_precision: true
+num_workers: 4
+seed: 0
+log_freq: 1
+model_kwargs:
+  hidden_dim: 128
+  context_dim: 128
+  dim: 256
+  attention_type: self_stereo_temporal_update_time_update_space
+  sst_depth: 4
+  use_cnet: true
+  use_convex_3d: true
+  top_k: 5
+  corr_levels: 4
+  corr_radius: 4
+"""
+# the in-training evaluation: two 4-frame synthetic clips at the crop, one
+# window each (kernel size 10), 10 iterations; and a third window for the
+# image dump where the logger has a TensorBoard writer
+RECIPE_EVAL_LAUNCHES = 2 * LAUNCHES_PER_WINDOW
+
+
+def write_sceneflow_tree(root: Path, video, disparity):
+    """`<root>/SceneFlow/Monkaa/frames_finalpass/scene`: the clip's frames as
+    PNGs and the left and right disparity as PFMs (Monkaa: the reader keeps
+    every sequence of it for training, while FlyingThings3D's TRAIN split
+    gives its first 40 sequences to the test split)."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.data.frame_utils import write_pfm
+    from ppmstereo_tpu_torch.data.png import write_png
+
+    seq = root / "SceneFlow" / "Monkaa" / "frames_finalpass" / "scene"
+    for cam_i, cam in enumerate(("left", "right")):
+        (seq / cam).mkdir(parents=True, exist_ok=True)
+        disp_dir = Path(str(seq / cam).replace("frames_finalpass", "disparity"))
+        disp_dir.mkdir(parents=True, exist_ok=True)
+        for i in range(len(video)):
+            write_png(str(seq / cam / f"{i:04d}.png"), video[i, cam_i].astype(np.uint8), level=1)
+            write_pfm(str(disp_dir / f"{i:04d}.pfm"), disparity[i].astype(np.float32))
+
+
+def phase_train_recipe(smi: str):
+    """The train CLI with --config (RECIPE_PRESET) on the mixture of a
+    SceneFlow and a Dynamic Replica train tree written here: the loader
+    built from both roots, batches drawn from both, RECIPE_STEPS finite
+    losses; then train(enable_eval=True, save_callback=...) for 2 steps with
+    a save and an evaluation at step 2: the callback given the port's state,
+    the evaluation launching kernels 1 and 6 on the card."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.cli import train as train_cli
+    from ppmstereo_tpu_torch.data import datasets
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.train import trainer
+    from ppmstereo_tpu_torch.train.state import TrainState
+
+    cfg0 = trainer.TrainConfig()
+    h, w = cfg0.crop_size[0] + 32, cfg0.crop_size[1] + 64
+    out = {}
+    with tempfile.TemporaryDirectory(dir=REPO / "build") as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        video, gt = synthetic_clip(RECIPE_SCENEFLOW_FRAMES, h, w, seed=5)
+        write_sceneflow_tree(tmp / "datasets", video, gt)
+        video, gt = synthetic_clip(RECIPE_DR_FRAMES, h, w, seed=6)
+        write_dynamic_replica_tree(tmp / "datasets", video, gt, split_name="train")
+        write_s = time.perf_counter() - t0
+        preset = tmp / "preset.yaml"
+        preset.write_text(RECIPE_PRESET)
+
+        fetch = datasets.fetch_dataloader
+        loaders, served = [], []
+
+        def recording_fetch(*args, **kwargs):
+            loader = fetch(*args, **kwargs)
+            for part, d in enumerate(loader.dataset.datasets):
+                getitem = d.__getitem__
+
+                def tapped(index, rng=None, _get=getitem, _part=part):
+                    served.append(_part)
+                    return _get(index, rng)
+
+                d.__getitem__ = tapped
+            loaders.append(loader)
+            return loader
+
+        cwd = os.getcwd()
+        datasets.fetch_dataloader = recording_fetch
+        try:
+            os.chdir(tmp)  # the loader's default roots: datasets/SceneFlow, ...
+            t0 = time.perf_counter()
+            state = train_cli.main(["--config", str(preset), f"num_steps={RECIPE_STEPS}",
+                                    f"exp_dir={tmp / 'cli'}"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t0
+        finally:
+            os.chdir(cwd)
+            datasets.fetch_dataloader = fetch
+        (loader,) = loaders
+        parts = [type(d).__name__ for d in loader.dataset.datasets]
+        sizes = [len(d) for d in loader.dataset.datasets]
+        records = [json.loads(x) for x in (tmp / "cli" / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in records]
+        drawn = sorted(set(served))
+        log(f"train CLI --config on the mixture on {smi}: trees written in {write_s:.1f} s; "
+            f"parts {parts} of {sizes} samples (x50), samples drawn from parts {drawn} "
+            f"({len(served)} samples); {RECIPE_STEPS} steps, losses "
+            f"{[round(x, 4) for x in losses]}, seconds per step "
+            f"{[round(1 / r['steps_per_s'], 3) for r in records]}; {cli_s:.1f} s in main()")
+        if parts != ["SequenceSceneFlowDataset", "DynamicReplicaDataset"] or min(sizes) == 0:
+            raise RuntimeError(f"the mixture has parts {parts} of {sizes} samples")
+        if drawn != [0, 1]:
+            raise RuntimeError(f"the batches came from parts {drawn} only")
+        if state.step != RECIPE_STEPS or len(losses) != RECIPE_STEPS \
+                or not all(np.isfinite(losses)):
+            raise RuntimeError(f"train CLI: step {state.step}, losses {losses}")
+        out.update(cli_s=cli_s, cli_losses=losses, parts=parts, part_sizes=sizes,
+                   samples_from=drawn, write_s=write_s)
+        del state
+
+        cfg = trainer.TrainConfig(exp_dir=str(tmp / "direct"), ckpt_after_steps=0,
+                                  save_freq=2, eval_freq=2, log_freq=1)
+        saves, evals = [], []
+        run_eval = trainer.run_in_training_eval
+
+        def counted_eval(cfg_, params, step, logger, *args, **kwargs):
+            torch.cuda.synchronize()
+            before = pa.play_attention.launches, kl.corr_lookup_kernel.launches
+            results = run_eval(cfg_, params, step, logger, *args, **kwargs)
+            # with a TensorBoard writer, one more window for the image dump
+            want = RECIPE_EVAL_LAUNCHES + LAUNCHES_PER_WINDOW * (logger.writer is not None)
+            evals.append((pa.play_attention.launches - before[0],
+                          kl.corr_lookup_kernel.launches - before[1], want))
+            return results
+
+        def callback(step, st):
+            saves.append((step, st, (Path(cfg.exp_dir) / "ckpt" / f"step_{step}.pt").is_file()))
+
+        trainer.run_in_training_eval = counted_eval
+        try:
+            t0 = time.perf_counter()
+            state = trainer.train(cfg, max_steps=2, enable_eval=True, save_callback=callback,
+                                  device="cuda")
+            torch.cuda.synchronize()
+            direct_s = time.perf_counter() - t0
+        finally:
+            trainer.run_in_training_eval = run_eval
+        records = [json.loads(x) for x in
+                   (tmp / "direct" / "metrics.jsonl").read_text().splitlines()]
+        losses = [r["loss"] for r in records if "loss" in r]
+        dumped = json.loads((tmp / "direct" / "result_intrain_2.json").read_text())
+        log(f"train(enable_eval=True, save_callback=...) on {smi}: {direct_s:.1f} s; saves "
+            f"{[(step, ok) for step, _, ok in saves]}; evaluations at step 2: kernel 1 and 6 "
+            f"launches and the expected {evals}, EPE "
+            f"{dumped['aggregate']['epe_mean']:.3f} px (untrained); losses {losses}")
+        if [(step, ok, st is state and isinstance(st, TrainState)) for step, st, ok in saves] \
+                != [(2, True, True)]:
+            raise RuntimeError(f"save_callback calls {[(s_, ok) for s_, _, ok in saves]}")
+        if len(evals) != 1 or not evals[0][0] == evals[0][1] == evals[0][2]:
+            raise RuntimeError(f"in-training evaluation launches {evals}, expected one "
+                               "evaluation of two clips (and the image dump where the logger "
+                               "has a writer), 20 each a window")
+        if len(losses) != 2 or not all(np.isfinite(losses)) \
+                or not np.isfinite(dumped["aggregate"]["epe_mean"]):
+            raise RuntimeError(f"losses {losses}, eval {dumped['aggregate']}")
+        out.update(direct_s=direct_s, direct_losses=losses, saves=[s_ for s_, _, _ in saves],
+                   eval_launches=evals,
+                   eval_epe=dumped["aggregate"]["epe_mean"])
+        del state
+    torch.cuda.empty_cache()
+    return out
+
+
 def _grad_max(model, batch: dict) -> dict:
     """Each trainable tensor's largest |gradient| of the sequence loss on
     `batch`, with no update."""
@@ -2242,7 +2758,7 @@ def main() -> None:
     with phase("kernels"):
         rows = phase_kernels(smi)
     with phase("lookup"):
-        rows["lookup"] = phase_lookup(smi)
+        rows["lookup"], lookup_instances = phase_lookup(smi)
     with phase("small parity"):
         small_run = phase_small_parity()
     with phase("train small parity"):
@@ -2253,12 +2769,15 @@ def main() -> None:
         phase_profile(main_run, smi)
     with phase("modes"):
         modes_run = phase_modes(main_run, smi)
+    with phase("config"):
+        config_run = phase_config(main_run, smi)
     with phase("eval"):
         eval_run = phase_eval(smi)
     with phase("ring"):
         ring_run = phase_ring(main_run, small_run, smi)
     with phase("train"):
         train_run = phase_train(smi)
+        train_run["recipe"] = phase_train_recipe(smi)
 
     # launches: kernel 1 on the inference path's run, kernels 2-4 on the
     # training path's run, kernel 5 on the ring path's run (rank 0); kernel
@@ -2279,6 +2798,7 @@ def main() -> None:
     for record in records[:5]:
         record["sass"] = sass[record["name"]]
     records[5]["ptxas"] = sass["corr_lookup"]
+    records[5]["instances"] = lookup_instances
     records[4]["ring"] = ring_run["readings"]
     # measured on rank 0 in the ring phase (None: the profiler saw nothing)
     records[4]["ms_per_window_and_rank"] = ring_run["carry_window_ms"]
@@ -2286,6 +2806,7 @@ def main() -> None:
                                 (records[5], "lookup_launches", "lookup")):
         record["launches_modes"] = {name: run[key] for name, run in modes_run.items()}
         record["launches_eval"] = eval_run[key]
+        record["launches_config"] = {name: run[key] for name, run in config_run.items()}
         record["at_720p"] = _summary_720p(eval_run["kernels"][kernel])
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)

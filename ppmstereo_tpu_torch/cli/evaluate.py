@@ -10,8 +10,9 @@ Trailing KEY=VALUE arguments override the config (dotted for MODEL.*).
 Runs on `cuda` unless `--device` names another device; raises without a
 card. MODEL.checkpoint takes the JAX package's flat parameters (.npz) or a
 directory of the port's trainer (its newest step_<n>.pt). MODEL.model_kwargs
-("k=v,k2=v2", values literal-evaluated) reaches the model constructor:
-warm_start, warm_iters, encoder_cache, mixed_precision.
+("k=v,k2=v2", values literal-evaluated) reaches the model zoo: the window
+modes (warm_start, warm_iters, encoder_cache) and every field of
+`PPMStereoConfig` (mixed_precision, use_cnet, top_k, corr_radius, ...).
 """
 
 from __future__ import annotations
@@ -144,7 +145,7 @@ def run_eval(cfg: DefaultConfig, device: str = "cuda"):
         raise NotImplementedError(
             f"MODEL.mesh={cfg.MODEL.mesh}: the port's sharded inference runs one process per "
             "rank, and this CLI is one process; the data and seq axes and a sharded "
-            "evaluation are ROADMAP item 2")
+            "evaluation are ROADMAP §1 item 7.2")
     kwargs = _parse_model_kwargs(cfg.MODEL.model_kwargs)
     kwargs.setdefault("device", device)
     predictor = model_zoo(cfg.MODEL.model_name, kernel_size=cfg.MODEL.kernel_size,

@@ -4,13 +4,22 @@
     python -m ppmstereo_tpu_torch.cli.train --num_steps 200000 \\
         --batch_size 2 --lr 0.0003 --sample_len 5 --train_iters 10
 
+    # a YAML TrainConfig preset, with dotted overrides on top
+    python -m ppmstereo_tpu_torch.cli.train --config preset.yaml num_steps=300
+
     # a tiny run on the CPU
     python -m ppmstereo_tpu_torch.cli.train --device cpu --image_size 64 128 \\
         --sample_len 3 --train_iters 1 --num_steps 2
 
-Trailing KEY=VALUE arguments override TrainConfig fields (e.g. log_freq=1).
-Runs on `cuda` unless `--device` names another device; raises without a
-card. The JAX CLI's mesh flags wait for the multi-GPU slice.
+With --config the preset (read by `utils/config.py::load_yaml`, its
+`model_kwargs` a mapping of PPMStereoConfig fields) replaces the other flags
+but --device; trailing KEY=VALUE arguments override TrainConfig fields
+either way (e.g. log_freq=1). Runs on `cuda` unless `--device` names another
+device; raises without a card. The mesh sizes are TrainConfig fields
+(data_parallel=N and so on as overrides); above one device they raise
+(ROADMAP §1 item 7). As in the JAX CLI, the
+in-training evaluation is off here (`train(cfg)`); --evaluate_freq sets its
+interval for callers of `train(..., enable_eval=True)`.
 """
 
 from __future__ import annotations
@@ -23,6 +32,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("ppmstereo_tpu_torch.train")
     p.add_argument("--device", default="cuda", help="torch device (cuda | cuda:N | cpu)")
     p.add_argument("--name", default="ppmstereo", help="ppmstereo (the only model ported)")
+    p.add_argument("--config", default=None, help="YAML TrainConfig preset")
     p.add_argument("--ckpt_path", default="./outputs/train")
     p.add_argument("--num_steps", type=int, default=200_000)
     p.add_argument("--batch_size", type=int, default=2)
@@ -31,6 +41,7 @@ def main(argv=None):
     p.add_argument("--train_iters", type=int, default=10)
     p.add_argument("--image_size", type=int, nargs=2, default=[320, 512])
     p.add_argument("--no_mixed_precision", action="store_true")
+    p.add_argument("--evaluate_freq", type=int, default=5000)
     p.add_argument("--save_freq", type=int, default=5000)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
@@ -40,23 +51,27 @@ def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
     from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
-    from ppmstereo_tpu_torch.utils.config import apply_overrides
+    from ppmstereo_tpu_torch.utils.config import apply_overrides, load_yaml
 
-    cfg = TrainConfig(
-        model_name=args.name,
-        num_steps=args.num_steps,
-        batch_size=args.batch_size,
-        lr=args.lr,
-        sample_len=args.sample_len,
-        train_iters=args.train_iters,
-        crop_size=tuple(args.image_size),
-        mixed_precision=not args.no_mixed_precision,
-        exp_dir=args.ckpt_path,
-        save_freq=args.save_freq,
-        num_workers=args.num_workers,
-        seed=args.seed,
-    )
-    apply_overrides(cfg, args.overrides)
+    if args.config:
+        cfg = load_yaml(TrainConfig, args.config, overrides=args.overrides)
+    else:
+        cfg = TrainConfig(
+            model_name=args.name,
+            num_steps=args.num_steps,
+            batch_size=args.batch_size,
+            lr=args.lr,
+            sample_len=args.sample_len,
+            train_iters=args.train_iters,
+            crop_size=tuple(args.image_size),
+            mixed_precision=not args.no_mixed_precision,
+            exp_dir=args.ckpt_path,
+            eval_freq=args.evaluate_freq,
+            save_freq=args.save_freq,
+            num_workers=args.num_workers,
+            seed=args.seed,
+        )
+        apply_overrides(cfg, args.overrides)
     return train(cfg, device=args.device)
 
 

@@ -11,7 +11,9 @@
 // the blend in f32. All levels and taps are one launch; the output is
 // (N, H, W1, L (2r+1)), level-major, in f32 or bf16. The pyramid is f32 or
 // bf16 (the model's main path stores it in bf16: ops/corr.py::corr_volume).
-// The radius is 4, the model's.
+// The radius r is 1..6 (one template instance each; the shipped model's is
+// 4) and the level count L 1..6 (a run-time count), as `PPMStereoConfig`'s
+// `corr_radius` and `corr_levels` allow.
 //
 // What bounds it: bytes. It does ~4 flops per output and reads, per pixel
 // and level, a window of 2r + 2 neighbouring values of one row. At the 1/4
@@ -22,8 +24,8 @@
 // byte as much as by the bytes.
 //
 // Design:
-//   * one thread per (pixel, level): a block of 256 threads takes tiles of
-//     64 pixels, the 4 levels in turn over its warps (one level per two
+//   * one thread per (pixel, level): a block of 64 L threads takes tiles of
+//     64 pixels, the L levels in turn over its warps (one level per two
 //     warps, so a warp's level and row width are uniform);
 //   * the thread reads the 16-byte aligned chunks of its row that hold its
 //     window of 2r + 3 values (3 chunks of bf16, 4 of f32; one vector load
@@ -36,8 +38,9 @@
 //     next integer, one more with f = 0, so tap t reads window elements t,
 //     t + 1 or t + 1, t + 2, chosen by a compare, from registers;
 //   * within a tile every index is 32-bit; the tile's outputs (64 x 36
-//     values, one contiguous span of the output) are staged in shared memory
-//     and written with 16-byte vector stores;
+//     values at the shipped r and L, one contiguous span of the output) are
+//     staged in dynamic shared memory and written with 16-byte vector
+//     stores;
 //   * a grid of (SMs x resident blocks per SM) blocks walks over the tiles;
 //   * the blend is written with round-to-nearest intrinsics (no fused
 //     multiply-add), in the order of the plain version
@@ -56,13 +59,10 @@
 
 namespace {
 
-constexpr int MAX_LEVELS = 4;
-constexpr int R = 4;                   // radius
-constexpr int TAPS = 2 * R + 1;
-constexpr int WINDOW = 2 * R + 3;      // the values one (pixel, level) may read
-constexpr int MAX_CHANNELS = MAX_LEVELS * TAPS;
-constexpr int NTHREADS = 256;
-constexpr int TP = NTHREADS / MAX_LEVELS;  // pixels per tile
+constexpr int MAX_LEVELS = 6;
+constexpr int MAX_RADIUS = 6;
+constexpr int TP = 64;                          // pixels per tile
+constexpr int MAX_THREADS = TP * MAX_LEVELS;    // one thread per (pixel, level)
 constexpr float LIMIT = 1073741824.f;  // |floor(x / 2^l)| is clamped to 2^30
 
 template <typename T>
@@ -82,36 +82,40 @@ __device__ __forceinline__ uint32_t bits_of(const __nv_bfloat16* p, int i, int n
   return (i >= 0 && i < n) ? static_cast<uint32_t>(__bfloat16_as_ushort(p[i])) : 0u;
 }
 
-// a, b, c or d for level 0, 1, 2 or 3 (the parameter arrays are not indexed
-// at run time, which would copy them to local memory)
+// x[l] for level l (the parameter arrays are not indexed at run time, which
+// would copy them to local memory)
 template <typename T>
-__device__ __forceinline__ T by_level(int l, T a, T b, T c, T d) {
-  return l == 0 ? a : l == 1 ? b : l == 2 ? c : d;
+__device__ __forceinline__ T by_level(int l, const T (&x)[MAX_LEVELS]) {
+  T v = x[0];
+#pragma unroll
+  for (int i = 1; i < MAX_LEVELS; ++i) v = l == i ? x[i] : v;
+  return v;
 }
 
-template <typename InT, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
+template <int R, typename InT, typename OutT>
+__global__ void __launch_bounds__(MAX_THREADS)
     corr_lookup_kernel(Levels<InT> lv, int num_levels, const float* __restrict__ coords,
                        OutT* __restrict__ out, int pixels) {
+  constexpr int TAPS = 2 * R + 1;
+  constexpr int WINDOW = 2 * R + 3;                        // the values one (pixel, level) may read
   constexpr int V = 16 / static_cast<int>(sizeof(InT));    // elements per 16-byte chunk
   constexpr int NCH = (WINDOW + 2 * (V - 1)) / V;          // chunks that hold a window
   constexpr int WORDS = 4 * NCH;                           // their 32-bit words
   constexpr int EPW = 4 / static_cast<int>(sizeof(InT));   // elements per word
-  __shared__ __align__(16) unsigned char stage_raw[TP * MAX_CHANNELS * sizeof(OutT)];
+  extern __shared__ __align__(16) unsigned char stage_raw[];  // TP x channels outputs
   OutT* stage = reinterpret_cast<OutT*>(stage_raw);
   const int channels = num_levels * TAPS;
+  const int nthreads = TP * num_levels;
   const int l = threadIdx.x / TP;
   const int j = threadIdx.x % TP;  // the thread's pixel in the tile
-  const int w = l < num_levels
-                    ? by_level(l, lv.width[0], lv.width[1], lv.width[2], lv.width[3])
-                    : 0;
-  const InT* level = by_level(l, lv.ptr[0], lv.ptr[1], lv.ptr[2], lv.ptr[3]);
+  const int w = by_level(l, lv.width);
+  const InT* level = by_level(l, lv.ptr);
   const float scale = __int_as_float((127 - l) << 23);  // 2^-l: x / 2^l is exact
   const int ntiles = (pixels + TP - 1) / TP;
   for (int tile = blockIdx.x; tile < ntiles; tile += gridDim.x) {
     const int p0 = tile * TP;
     const int npix = min(TP, pixels - p0);
-    if (l < num_levels && j < npix) {
+    if (j < npix) {
       const float xl = __fmul_rn(coords[p0 + j], scale);
       const int base = static_cast<int>(fmaxf(fminf(floorf(xl), LIMIT), -LIMIT));
       const int e0 = base - R;  // the window's first element in the row
@@ -186,16 +190,16 @@ __global__ void __launch_bounds__(NTHREADS)
     }
     __syncthreads();
     // the tile's span of the output: 16-byte stores, then any tail element
-    // (the span starts 16-byte aligned: 64 pixels x 9 taps x 2 bytes is
-    // 1152 bytes)
+    // (the span starts 16-byte aligned: 64 pixels x an odd number of taps x
+    // L x 2 bytes is a multiple of 128 bytes)
     const int n_out = npix * channels;
     const int n_vec = n_out * static_cast<int>(sizeof(OutT)) / 16;
     OutT* dst = out + static_cast<size_t>(p0) * channels;
-    for (int c = threadIdx.x; c < n_vec; c += NTHREADS) {
+    for (int c = threadIdx.x; c < n_vec; c += nthreads) {
       reinterpret_cast<uint4*>(dst)[c] = reinterpret_cast<const uint4*>(stage)[c];
     }
     for (int e = n_vec * 16 / static_cast<int>(sizeof(OutT)) + threadIdx.x; e < n_out;
-         e += NTHREADS) {
+         e += nthreads) {
       dst[e] = stage[e];
     }
     __syncthreads();  // the stage is refilled by the next tile
@@ -218,13 +222,16 @@ cudaError_t current_sms(int* sms) {
   return cudaSuccess;
 }
 
-template <typename InT, typename OutT>
+template <int R, typename InT, typename OutT>
 int launch(const void* const* levels, const int* widths, int num_levels, const void* coords,
            void* out, int pixels, cudaStream_t stream) {
-  static int blocks_per_sm = 0;  // resident blocks of this instance per SM
-  if (blocks_per_sm == 0) {
+  // resident blocks of this instance per SM, by level count
+  static int blocks_per_sm[MAX_LEVELS + 1] = {};
+  const int threads = TP * num_levels;
+  const size_t smem = static_cast<size_t>(TP) * num_levels * (2 * R + 1) * sizeof(OutT);
+  if (blocks_per_sm[num_levels] == 0) {
     const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &blocks_per_sm, corr_lookup_kernel<InT, OutT>, NTHREADS, 0);
+        &blocks_per_sm[num_levels], corr_lookup_kernel<R, InT, OutT>, threads, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   int sms = 0;
@@ -236,38 +243,55 @@ int launch(const void* const* levels, const int* widths, int num_levels, const v
     lv.width[l] = widths[l];
   }
   const int ntiles = (pixels + TP - 1) / TP;
-  const int blocks = ntiles < sms * blocks_per_sm ? ntiles : sms * blocks_per_sm;
-  corr_lookup_kernel<InT, OutT><<<blocks, NTHREADS, 0, stream>>>(
+  const int cap = sms * blocks_per_sm[num_levels];
+  const int blocks = ntiles < cap ? ntiles : cap;
+  corr_lookup_kernel<R, InT, OutT><<<blocks, threads, smem, stream>>>(
       lv, num_levels, static_cast<const float*>(coords), static_cast<OutT*>(out), pixels);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int R>
+int launch_radius(const void* const* levels, const int* widths, int num_levels,
+                  const void* coords, void* out, int pixels, int pyramid_bf16, int out_bf16,
+                  cudaStream_t s) {
+  if (pyramid_bf16) {
+    return out_bf16 ? launch<R, __nv_bfloat16, __nv_bfloat16>(levels, widths, num_levels,
+                                                              coords, out, pixels, s)
+                    : launch<R, __nv_bfloat16, float>(levels, widths, num_levels, coords, out,
+                                                      pixels, s);
+  }
+  return out_bf16 ? launch<R, float, __nv_bfloat16>(levels, widths, num_levels, coords, out,
+                                                    pixels, s)
+                  : launch<R, float, float>(levels, widths, num_levels, coords, out, pixels, s);
+}
+
 }  // namespace
 
-// levels 0 .. num_levels - 1 (1..4): contiguous (pixels, width_l) rows on the
-// current device, 16-byte aligned, f32 (pyramid_bf16 = 0) or bf16 (1), the
-// rest ignored; coords (pixels) f32; out (pixels, num_levels * 9), f32
-// (out_bf16 = 0) or bf16 (1), 16-byte aligned. radius must be 4. Launches on
-// `stream` and returns cudaGetLastError() (0 on success), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
+// level0 .. level<num_levels - 1> (num_levels 1..6): contiguous (pixels,
+// width<l>) rows on the current device, 16-byte aligned, f32 (pyramid_bf16
+// = 0) or bf16 (1), the rest ignored; coords (pixels) f32; out (pixels,
+// num_levels (2 radius + 1)), f32 (out_bf16 = 0) or bf16 (1), 16-byte
+// aligned; radius 1..6. Launches on `stream` and returns cudaGetLastError()
+// (0 on success), or cudaErrorInvalidValue for arguments the kernel does not
+// take.
 extern "C" int corr_lookup(const void* level0, const void* level1, const void* level2,
-                           const void* level3, int width0, int width1, int width2, int width3,
-                           int num_levels, int radius, const void* coords, void* out,
+                           const void* level3, const void* level4, const void* level5,
+                           int width0, int width1, int width2, int width3, int width4,
+                           int width5, int num_levels, int radius, const void* coords, void* out,
                            int64_t pixels, int pyramid_bf16, int out_bf16, void* stream) {
-  if (num_levels < 1 || num_levels > MAX_LEVELS || radius != R || pixels < 0 ||
-      pixels > INT32_MAX - TP) {
+  if (num_levels < 1 || num_levels > MAX_LEVELS || radius < 1 || radius > MAX_RADIUS ||
+      pixels < 0 || pixels > INT32_MAX - TP) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (pixels == 0) return 0;
-  const void* const levels[MAX_LEVELS] = {level0, level1, level2, level3};
-  const int widths[MAX_LEVELS] = {width0, width1, width2, width3};
+  const void* const levels[MAX_LEVELS] = {level0, level1, level2, level3, level4, level5};
+  const int widths[MAX_LEVELS] = {width0, width1, width2, width3, width4, width5};
   const int n = static_cast<int>(pixels);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (pyramid_bf16) {
-    return out_bf16 ? launch<__nv_bfloat16, __nv_bfloat16>(levels, widths, num_levels, coords,
-                                                           out, n, s)
-                    : launch<__nv_bfloat16, float>(levels, widths, num_levels, coords, out, n, s);
-  }
-  return out_bf16 ? launch<float, __nv_bfloat16>(levels, widths, num_levels, coords, out, n, s)
-                  : launch<float, float>(levels, widths, num_levels, coords, out, n, s);
+  int (*const by_radius[MAX_RADIUS])(const void* const*, const int*, int, const void*,
+                                     void*, int, int, int, cudaStream_t) = {
+      launch_radius<1>, launch_radius<2>, launch_radius<3>,
+      launch_radius<4>, launch_radius<5>, launch_radius<6>};
+  return by_radius[radius - 1](levels, widths, num_levels, coords, out, n, pyramid_bf16,
+                               out_bf16, s);
 }

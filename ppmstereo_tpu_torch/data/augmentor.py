@@ -1,5 +1,6 @@
 """Sequence-consistent augmentation for stereo video clips (counterpart of
-ppmstereo_tpu/data/augmentor.py: `ColorJitter`, `SequenceDispFlowAugmentor`).
+ppmstereo_tpu/data/augmentor.py: `ColorJitter`, `SequenceDispFlowAugmentor`
+and `SequenceDispSparseFlowAugmentor`).
 
 The JAX package uses OpenCV for two functions; the port has no OpenCV and
 writes them in numpy:
@@ -287,3 +288,77 @@ class SequenceDispFlowAugmentor:
         images, disp = self.spatial_transform(images, disp, rng)
         return np.ascontiguousarray(images), (
             np.ascontiguousarray(disp) if disp is not None else None)
+
+
+class SequenceDispSparseFlowAugmentor(SequenceDispFlowAugmentor):
+    """Sparse-ground-truth variant: one photometric jitter for the whole clip
+    always, and the valid disparity samples moved to their nearest pixel of
+    the resized grid instead of a bilinear resize; a crop without the right
+    view's jitter."""
+
+    def color_transform(self, images: np.ndarray, rng) -> np.ndarray:
+        t = images.shape[0]
+        stack = images.reshape(t * 2, *images.shape[2:])
+        p = self.jitter.sample_params(rng)
+        gamma = rng.uniform(self.GAMMA[0], self.GAMMA[1])
+        gain = rng.uniform(self.GAMMA[2], self.GAMMA[3])
+        out = [_adjust_gamma(ColorJitter.apply(im, p), gamma, gain).astype(np.uint8)
+               for im in stack]
+        return np.stack(out).reshape(images.shape)
+
+    @staticmethod
+    def resize_sparse_flow_map(flow, valid, fx=1.0, fy=1.0):
+        """(H, W, 2) flow and (H, W) validity -> the resized grid's
+        (round(H fy), round(W fx), 2) flow and int32 validity: each valid
+        sample, scaled by (fx, fy), lands on the nearest pixel of its scaled
+        position; samples on the first row or column or outside are
+        dropped."""
+        ht, wd = flow.shape[:2]
+        xx, yy = np.meshgrid(np.arange(wd), np.arange(ht))
+        coords = np.stack([xx, yy], axis=-1).reshape(-1, 2).astype(np.float32)
+        flow_flat = flow.reshape(-1, 2).astype(np.float32)
+        valid_flat = valid.reshape(-1) >= 1
+        coords0, flow0 = coords[valid_flat], flow_flat[valid_flat]
+        ht1, wd1 = int(round(ht * fy)), int(round(wd * fx))
+        coords1 = coords0 * [fx, fy]
+        flow1 = flow0 * [fx, fy]
+        xi = np.round(coords1[:, 0]).astype(np.int32)
+        yi = np.round(coords1[:, 1]).astype(np.int32)
+        keep = (xi > 0) & (xi < wd1) & (yi > 0) & (yi < ht1)
+        flow_img = np.zeros([ht1, wd1, 2], np.float32)
+        valid_img = np.zeros([ht1, wd1], np.int32)
+        flow_img[yi[keep], xi[keep]] = flow1[keep]
+        valid_img[yi[keep], xi[keep]] = 1
+        return flow_img, valid_img
+
+    def spatial_transform(self, images, disp, valid, rng):
+        t, _, ht, wd, _ = images.shape
+        sx, sy = self._sample_scales(ht, wd, rng)
+        if rng.random() < self.spatial_aug_prob:
+            images = np.stack([np.stack([resize_linear(images[i, c], sx, sy) for c in (0, 1)])
+                               for i in range(t)])
+            if disp is not None:
+                resized = [[self.resize_sparse_flow_map(disp[i, c], valid[i, c], sx, sy)
+                            for c in range(disp.shape[1])] for i in range(t)]
+                disp = np.stack([np.stack([d for d, _ in cams]) for cams in resized])
+                valid = np.stack([np.stack([v for _, v in cams]) for cams in resized])
+        ch, cw = self.crop_size
+        hh, ww = images.shape[2], images.shape[3]
+        y0 = int(rng.integers(0, hh - ch))
+        x0 = int(rng.integers(0, ww - cw))
+        images = images[:, :, y0: y0 + ch, x0: x0 + cw]
+        if disp is not None:
+            disp = disp[:, :, y0: y0 + ch, x0: x0 + cw]
+            valid = valid[:, :, y0: y0 + ch, x0: x0 + cw]
+        return images, disp, valid
+
+    def __call__(self, images, disp, valid, rng: np.random.Generator | None = None):
+        """Augment one clip and its validity (T, C, H, W) with `rng` (the
+        augmentor's own generator when None, as for the dense one)."""
+        rng = self.rng if rng is None else rng
+        images = self.color_transform(images, rng)
+        images = self.eraser_transform(images, rng)
+        images, disp, valid = self.spatial_transform(images, disp, valid, rng)
+        return (np.ascontiguousarray(images),
+                None if disp is None else np.ascontiguousarray(disp),
+                None if valid is None else np.ascontiguousarray(valid))

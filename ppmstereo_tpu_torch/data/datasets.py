@@ -1,7 +1,8 @@
 """Stereo video datasets (counterpart of ppmstereo_tpu/data/datasets.py):
-the `StereoSequenceDataset` base, the evaluation readers (SceneFlow's
-FlyingThings3D test split, Sintel, Dynamic Replica, Infinigen, KITTI depth),
-`SyntheticStereoDataset` and the training loader `fetch_dataloader`.
+the `StereoSequenceDataset` base and `ConcatStereoDataset` (`a + b`), the
+readers (SceneFlow, Sintel's evaluation and training clips, Dynamic
+Replica, Infinigen, KITTI depth), `SyntheticStereoDataset` and the training
+loader `fetch_dataloader` with the reference's mixture.
 
 Ground-truth conventions are the JAX package's: disparity is stored as
 negative-x flow (np.stack([-disp, 0])); depth ground truth becomes
@@ -14,10 +15,8 @@ Samples are channels-last numpy dicts:
   disp  (T, 1, H, W, 1) float32 (negative-x disparity of the left camera)
   valid (T, 1, H, W)    float32
 
-The training readers (Sintel's training clips, VKITTI2, South Kensington)
-and the training mixture are not ported yet: where SceneFlow or Dynamic
-Replica's train split is on disk, `fetch_dataloader` raises instead of
-training on something else.
+VKITTI2 and the South Kensington readers are not ported yet (ROADMAP §1
+item 4).
 """
 
 from __future__ import annotations
@@ -33,7 +32,10 @@ from glob import glob
 import numpy as np
 
 from ppmstereo_tpu_torch.data import frame_utils
-from ppmstereo_tpu_torch.data.augmentor import SequenceDispFlowAugmentor
+from ppmstereo_tpu_torch.data.augmentor import (
+    SequenceDispFlowAugmentor,
+    SequenceDispSparseFlowAugmentor,
+)
 
 
 def _gaussian_taps_fixed(sigma: float = 3.0, size: int = 19, bits: int = 8) -> np.ndarray:
@@ -77,17 +79,16 @@ class StereoSequenceDataset:
     "valid"}` with img (T, 2, H, W, 3) uint8 and disp (T, 1, H, W, 2)
     float32.
 
-    sparse: the ground truth is sparse, and its validity is the reader's,
-    not recomputed from the disparity (the sparse augmentor is not ported:
-    a sparse dataset takes no aug_params)."""
+    sparse: the ground truth is sparse, its validity is the reader's, not
+    recomputed from the disparity, and it is augmented by the sparse
+    augmentor."""
 
     def __init__(self, aug_params=None, sparse: bool = False, reader=None):
         self.augmentor = None
         self.sparse = sparse
         if aug_params is not None and "crop_size" in aug_params:
-            if sparse:
-                raise NotImplementedError("the sparse augmentor is not ported yet (ROADMAP)")
-            self.augmentor = SequenceDispFlowAugmentor(**aug_params)
+            cls = SequenceDispSparseFlowAugmentor if sparse else SequenceDispFlowAugmentor
+            self.augmentor = cls(**aug_params)
         self.disparity_reader = reader or frame_utils.read_gen
         self.depth_reader = frame_utils.read_depth_any
         self.sample_list: list = []
@@ -129,7 +130,9 @@ class StereoSequenceDataset:
         without ground truth has "img" only."""
         out = self._load_sample(self.sample_list[index % len(self.sample_list)])
         imgs, disp, valid = out["img"], out["disp"], out["valid"]
-        if self.augmentor is not None:
+        if self.augmentor is not None and self.sparse:
+            imgs, disp, valid = self.augmentor(imgs, disp, valid, rng)
+        elif self.augmentor is not None:
             imgs, disp = self.augmentor(imgs, disp, rng)
         res = {"img": imgs.astype(np.float32)}
         if disp is not None:
@@ -147,8 +150,38 @@ class StereoSequenceDataset:
         clone.extra_info = v * self.extra_info
         return clone
 
+    def __add__(self, other):
+        return ConcatStereoDataset([self, other])
+
     def __len__(self):
         return len(self.sample_list)
+
+
+class ConcatStereoDataset:
+    """Datasets one after another (`a + b`; nested sums flatten); `* v`
+    repeats each part v times, in place."""
+
+    def __init__(self, datasets):
+        self.datasets = []
+        for d in datasets:
+            self.datasets.extend(d.datasets if isinstance(d, ConcatStereoDataset) else [d])
+        self._lengths = [len(d) for d in self.datasets]
+
+    def __len__(self):
+        return sum(self._lengths)
+
+    def __getitem__(self, index, rng: np.random.Generator | None = None) -> dict:
+        for d, n in zip(self.datasets, self._lengths):
+            if index < n:
+                return d.__getitem__(index, rng)
+            index -= n
+        raise IndexError(index)
+
+    def __add__(self, other):
+        return ConcatStereoDataset([self, other])
+
+    def __mul__(self, v: int):
+        return ConcatStereoDataset([d * v for d in self.datasets])
 
 
 def _clip() -> defaultdict:
@@ -236,6 +269,35 @@ class SequenceSintelStereo(StereoSequenceDataset):
             if sample["image"]["left"]:
                 self.sample_list.append(sample)
                 self.extra_info.append(seq)
+
+
+class SequenceSintelStereoTrain(StereoSequenceDataset):
+    """Sintel as a training source: dense clips of `sample_len` frames
+    sliding by one frame, each also added time-reversed, the packed-PNG
+    disparity read as dense (valid recomputed from it)."""
+
+    def __init__(self, aug_params=None, dstype="final", root="datasets/sintel_stereo",
+                 sample_len=1):
+        super().__init__(aug_params, reader=frame_utils.read_disp_sintel)
+        self.dstype, self.sample_len = dstype, sample_len
+        image_root = osp.join(root, "training")
+        for seq_path in sorted(glob(osp.join(image_root, f"{dstype}_left/*"))):
+            seq = osp.basename(seq_path)
+            lefts = sorted(glob(osp.join(seq_path, "*.png")))
+            images = {"left": lefts,
+                      "right": [osp.join(image_root, f"{dstype}_right", seq, osp.basename(p))
+                                for p in lefts]}
+            disps = [osp.join(image_root, "disparities", seq, osp.basename(p)) for p in lefts]
+            seq_len = len(lefts)
+            for ref in range(0, seq_len - sample_len):
+                fwd, rev = _clip(), _clip()
+                for idx in range(ref, ref + sample_len):
+                    for cam in ("left", "right"):
+                        fwd["image"][cam].append(images[cam][idx])
+                        rev["image"][cam].append(images[cam][seq_len - idx - 1])
+                    fwd["disparity"]["left"].append(disps[idx])
+                    rev["disparity"]["left"].append(disps[seq_len - idx - 1])
+                self.sample_list += [fwd, rev]
 
 
 class DynamicReplicaDataset(StereoSequenceDataset):
@@ -436,28 +498,36 @@ class SyntheticStereoDataset(StereoSequenceDataset):
 
 def fetch_dataloader(crop_size=(320, 512), sample_len=5, batch_size=2, num_workers=4,
                      sceneflow_root="datasets/SceneFlow",
-                     dynamic_replica_root="datasets/dynamic_replica_data", seed=0):
-    """The training loader: the JAX package's mixture is SceneFlow (final
-    pass) + Dynamic Replica (train), x50, shuffled, with its fallback to the
-    synthetic dataset when neither is on disk. The port trains on the
-    synthetic fallback only: where either dataset's root exists it raises
-    (the training mixture of their readers is not ported yet)."""
+                     dynamic_replica_root="datasets/dynamic_replica_data",
+                     use_synthetic_fallback=True, seed=0):
+    """The training loader: the reference's mixture, SceneFlow (final pass)
+    + Dynamic Replica (train) for each root on disk, x50, shuffled, with
+    the augmentor's right-view jitter (`yjitter` in the JAX package); with
+    neither root, the synthetic dataset (or, without the fallback,
+    FileNotFoundError)."""
     from ppmstereo_tpu_torch.data.loader import PrefetchLoader
 
-    for root in (sceneflow_root, osp.join(dynamic_replica_root, "train")):
-        if osp.isdir(root):
-            raise NotImplementedError(
-                f"{root} exists, but the port has no reader for it in training yet: the "
-                "training mixture of SceneFlow and Dynamic Replica is later work (ROADMAP). "
-                "Move the directory or pass other roots to train on the synthetic dataset.")
     aug_params = {
         "crop_size": crop_size,
         "min_scale": -0.2,
         "max_scale": 0.4,
         "saturation_range": (0.0, 1.4),
     }
-    logging.warning("no datasets on disk; using SyntheticStereoDataset")
-    dataset = SyntheticStereoDataset(aug_params, num_seqs=64, sample_len=sample_len,
-                                     height=crop_size[0] + 32, width=crop_size[1] + 64)
+    parts = []
+    if osp.isdir(sceneflow_root):
+        parts.append(SequenceSceneFlowDataset(aug_params, root=sceneflow_root,
+                                              dstype="frames_finalpass", sample_len=sample_len))
+    if osp.isdir(osp.join(dynamic_replica_root, "train")):
+        parts.append(DynamicReplicaDataset(aug_params, root=dynamic_replica_root,
+                                           split="train", sample_len=sample_len))
+    if not parts:
+        if not use_synthetic_fallback:
+            raise FileNotFoundError("no training datasets found")
+        logging.warning("no datasets on disk; using SyntheticStereoDataset")
+        parts = [SyntheticStereoDataset(aug_params, num_seqs=64, sample_len=sample_len,
+                                        height=crop_size[0] + 32, width=crop_size[1] + 64)]
+    dataset = parts[0]
+    for p in parts[1:]:
+        dataset = dataset + p
     return PrefetchLoader(dataset * 50, batch_size=batch_size, num_workers=num_workers,
                           seed=seed)

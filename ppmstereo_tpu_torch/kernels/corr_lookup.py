@@ -5,8 +5,10 @@ Counterpart of ppmstereo_tpu/kernels/corr_lookup.py::corr_lookup_pallas:
     corr_lookup_kernel(pyramid, coords_x, radius=4, out_dtype=torch.float32)
         -> (N, H, W1, L (2r+1)) in out_dtype
 
-with pyramid level l (N, H, W1, W2 / 2^l) in f32 or bf16 (all levels one
-dtype) and coords_x (N, H, W1) f32: for each pixel, level and tap t in
+with L = 1..MAX_LEVELS pyramid levels, level l (N, H, W1, W2 / 2^l) in f32
+or bf16 (all levels one dtype), radius 1..MAX_RADIUS (the model's
+`corr_levels` and `corr_radius`; `PPMStereoConfig` refuses others) and
+coords_x (N, H, W1) f32: for each pixel, level and tap t in
 [-r, r], the row of level l linearly interpolated at coords_x / 2^l + t,
 zeros outside the row, level-major, the pyramid's values widened to f32 and
 the blend in f32. The kernel (`csrc/corr_lookup.cu`) does all levels and
@@ -31,22 +33,24 @@ import torch
 from ppmstereo_tpu_torch.kernels import _build
 from ppmstereo_tpu_torch.ops.corr import corr_lookup
 
-MAX_LEVELS = 4
-RADIUS = 4  # the kernel's radius, the model's
+MAX_LEVELS = 6  # level counts and radii the kernel is built for
+MAX_RADIUS = 6
+RADIUS = 4  # the shipped model's radius
 DTYPES = (torch.float32, torch.bfloat16)  # of the pyramid and of the output
-# level0..3, width0..3, num_levels, radius, coords, out, pixels, pyramid_bf16,
+# level0..5, width0..5, num_levels, radius, coords, out, pixels, pyramid_bf16,
 # out_bf16, stream
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
-             + [ctypes.c_int64] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p] * MAX_LEVELS + [ctypes.c_int] * (MAX_LEVELS + 2)
+             + [ctypes.c_void_p] * 2 + [ctypes.c_int64] + [ctypes.c_int] * 2
+             + [ctypes.c_void_p])
 
 
 def _accepted(pyramid, coords_x, radius: int, out_dtype) -> bool:
     """Whether the kernel takes these arguments: the cheap test run on every
     call (`_check` says what is wrong)."""
     dev, shape, dtype = coords_x.get_device(), coords_x.shape, pyramid[0].dtype
-    if (radius != RADIUS or not 1 <= len(pyramid) <= MAX_LEVELS or out_dtype not in DTYPES
-            or dtype not in DTYPES or dev < 0 or coords_x.dtype != torch.float32
-            or coords_x.dim() != 3 or not coords_x.is_contiguous()):
+    if (not 1 <= radius <= MAX_RADIUS or not 1 <= len(pyramid) <= MAX_LEVELS
+            or out_dtype not in DTYPES or dtype not in DTYPES or dev < 0
+            or coords_x.dtype != torch.float32 or coords_x.dim() != 3 or not coords_x.is_contiguous()):
         return False
     grad = torch.is_grad_enabled() and coords_x.requires_grad
     for c in pyramid:
@@ -59,8 +63,9 @@ def _accepted(pyramid, coords_x, radius: int, out_dtype) -> bool:
 
 def _check(pyramid, coords_x, radius: int, out_dtype) -> None:
     """Raise the reason the kernel does not take these arguments."""
-    if radius != RADIUS:
-        raise ValueError(f"corr_lookup_kernel: radius {radius}, the kernel takes {RADIUS}")
+    if not 1 <= radius <= MAX_RADIUS:
+        raise ValueError(f"corr_lookup_kernel: radius {radius}, the kernel takes 1 to "
+                         f"{MAX_RADIUS}")
     if not 1 <= len(pyramid) <= MAX_LEVELS:
         raise ValueError(f"corr_lookup_kernel: {len(pyramid)} levels, the kernel takes 1 to "
                          f"{MAX_LEVELS}")

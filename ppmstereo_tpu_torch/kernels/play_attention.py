@@ -21,7 +21,9 @@ package's `_play_attention_xla` and `_attention_bwd_xla` are. The kernels
 are built by `kernels/_build.py` and bound with ctypes.
 
 `play_attention` is the entry point. Without autograd (inference) it runs
-the plain forward on the CPU or launches the forward kernel. When an input
+the plain forward on the CPU or launches the forward kernel. The kernels
+take D = 128 and any other head dim raises on a card (`PPMStereoConfig`
+refuses a context_dim other than 128 when it is built). When an input
 requires a gradient it goes through `PlayAttention`, a
 `torch.autograd.Function`: on a card the forward-with-residual kernel and
 the two backward kernels, on the CPU the plain forward and

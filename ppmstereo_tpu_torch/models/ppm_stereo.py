@@ -29,6 +29,10 @@ near-tie of frame scores cannot split the processes. This is the JAX
 package's ring path (`ring_attention=True` under a `space` mesh) with its
 divisibility rule; the rest of the window is not sharded here.
 
+The architecture comes from `PPMStereoConfig`, the port's copy of the JAX
+package's dataclass with its defaults (the shipped configuration); its
+`__post_init__` refuses what the port does not run.
+
 Tensors are (B, T, H, W, C) at the public boundary; images are in [0, 255].
 The bf16 policy follows the JAX modules' `dtype=`: each layer computes in
 `dtype`, normalisation statistics, the correlation, the frame scores and
@@ -38,20 +42,23 @@ attention whatever the policy.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ppmstereo_tpu_torch.kernels import corr_lookup as _lookup_kernel
 from ppmstereo_tpu_torch.kernels.corr_lookup import corr_lookup_kernel
-from ppmstereo_tpu_torch.kernels.play_attention import play_attention, play_scale
+from ppmstereo_tpu_torch.kernels.play_attention import HEAD_DIM, play_attention, play_scale
 from ppmstereo_tpu_torch.nn.attention import temporal_positional_encoding
 from ppmstereo_tpu_torch.nn.convnext import ContextNet
 from ppmstereo_tpu_torch.nn.encoder import BasicEncoder
 from ppmstereo_tpu_torch.nn.motion import AttentionQK
 from ppmstereo_tpu_torch.nn.sst import SSTBlock
-from ppmstereo_tpu_torch.nn.update import HIDDEN_DIM, SequenceUpdateBlock3D
+from ppmstereo_tpu_torch.nn.update import MOTION_DIM, SequenceUpdateBlock3D
 from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
 from ppmstereo_tpu_torch.ops.geometry import (
     adaptive_max_pool2d,
@@ -61,17 +68,101 @@ from ppmstereo_tpu_torch.ops.geometry import (
     interp_ac_false,
     interp_bilinear,
 )
-from ppmstereo_tpu_torch.ops.upsample import convex_upsample_3d
+from ppmstereo_tpu_torch.ops.upsample import convex_upsample_2d, convex_upsample_3d
 from ppmstereo_tpu_torch.parallel import ring_attention
 
 
-# The shipped configuration (the JAX package's `PPMStereoConfig()` defaults)
-DIM = 256  # fnet / SST features: the GRU state (HIDDEN_DIM) and the context input
-CONTEXT_DIM = 128
-SST_DEPTH = 4
-TOP_K = 5
-CORR_LEVELS = 4
-CORR_RADIUS = 4
+SHIPPED_ATTENTION = "self_stereo_temporal_update_time_update_space"
+
+
+@dataclass(frozen=True)
+class PPMStereoConfig:
+    """The architecture switches of the JAX package's `PPMStereoConfig`
+    (ppmstereo_tpu/models/ppm_stereo.py), with its defaults: the shipped
+    configuration.
+
+    hidden_dim, context_dim, dim: the GRU state's width, the play's head
+    dim (the q/k projection) and the features' width (fnet, cnet, SST); the
+    context input is dim - hidden_dim wide. attention_type names the SST
+    layout and the first stage's update attention (None: neither);
+    sst_depth its rounds; use_cnet the ConvNeXt context net (without it the
+    GRU state and context come from fnet's features alone); use_convex_3d
+    the 3x3x3 convex upsample (else 3x3); top_k the frames a target frame
+    picks (at most the clip's); corr_levels and corr_radius the pyramid
+    lookup; num_frames the SST time embedding's frames; mixed_precision
+    bf16 layers.
+
+    Accepted for the JAX package's callers, and no-ops here: remat (train
+    mode always checkpoints each iteration), ring_attention (under a space
+    mesh the play steps always ring) and unroll_refinement_loop (the loop is
+    a Python loop); they serve XLA. force_xla_attention runs the plain play,
+    the CPU's route anyway; on a card, where kernel 1 has no bypass, it
+    raises.
+
+    Refused when the config is built: different_update_blocks=False (as in
+    the JAX package), use_vfm and another vfm_encoder (ROADMAP §1 item 8), a
+    radius or level count beyond kernel 6's, a context_dim other than the
+    play kernels' head dim 128 (the play's value is the 128-wide
+    `aggregator` projection, so the JAX model fails at its reshape
+    likewise), and an update attention whose input (dim - hidden_dim + 256)
+    is not its 384 channels."""
+
+    hidden_dim: int = 128
+    context_dim: int = 128
+    dim: int = 256
+    num_frames: int = 5
+    attention_type: str | None = SHIPPED_ATTENTION
+    sst_depth: int = 4
+    use_cnet: bool = True
+    use_convex_3d: bool = True
+    different_update_blocks: bool = True
+    top_k: int = 5
+    corr_levels: int = 4
+    corr_radius: int = 4
+    mixed_precision: bool = True
+    force_xla_attention: bool = False
+    use_vfm: bool = False
+    vfm_encoder: str = "vits"
+    remat: bool = True
+    ring_attention: bool = True
+    unroll_refinement_loop: bool = False
+
+    def __post_init__(self):
+        if not self.different_update_blocks:
+            raise NotImplementedError(
+                "shared update blocks across scales are not supported; the shipped "
+                "reference config uses different_update_blocks=True")
+        if self.use_vfm or self.vfm_encoder != "vits":
+            raise NotImplementedError(
+                "use_vfm / vfm_encoder (PPMStereo_VDA) are not ported yet: ROADMAP §1 item 8")
+        lk = _lookup_kernel
+        if not (1 <= self.corr_radius <= lk.MAX_RADIUS and 1 <= self.corr_levels <= lk.MAX_LEVELS):
+            raise ValueError(
+                f"corr_levels={self.corr_levels}, corr_radius={self.corr_radius}: kernel 6 "
+                f"(csrc/corr_lookup.cu) takes 1 to {lk.MAX_LEVELS} levels and a radius of 1 to "
+                f"{lk.MAX_RADIUS}")
+        if self.context_dim != HEAD_DIM:
+            beyond = (f"; a head dim of {self.context_dim} would also need kernels 1-4 beyond "
+                      f"D = {HEAD_DIM} (ROADMAP §2)" if self.context_dim % 128 == 0 else "")
+            raise ValueError(
+                f"context_dim={self.context_dim}: the play attends q/k of context_dim channels "
+                f"over the {MOTION_DIM}-channel value of the update block's `aggregator`, so "
+                f"the head dim must be {MOTION_DIM} (the JAX model fails at its reshape "
+                f"likewise){beyond}")
+        at = self.attention_type or ""
+        if ("update_time" in at or "update_space" in at) and self.dim - self.hidden_dim != 128:
+            raise ValueError(
+                f"attention_type {at!r} with dim={self.dim}, hidden_dim={self.hidden_dim}: the "
+                "first stage's update attention is 384 channels wide, so dim - hidden_dim must "
+                "be 128")
+        if not 0 < self.hidden_dim < self.dim or self.dim % 8 or self.top_k < 1:
+            raise ValueError(f"hidden_dim={self.hidden_dim}, dim={self.dim}, "
+                             f"top_k={self.top_k}: need 0 < hidden_dim < dim, dim a multiple "
+                             "of the SST's 8 heads and top_k >= 1")
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.mixed_precision else torch.float32
 
 
 class PPMUpdateLoop(nn.Module):
@@ -79,16 +170,20 @@ class PPMUpdateLoop(nn.Module):
     (`collect_preds`) each iteration also yields its prediction at full
     resolution: the stage's grid is 1 / (4 * interp_scale) of the image."""
 
-    def __init__(self, iters: int, dtype: torch.dtype, with_attention: bool = False,
+    def __init__(self, cfg: PPMStereoConfig, iters: int, attention_type: str | None = None,
                  with_init_hidden: bool = False, interp_scale: int = 1,
                  collect_preds: bool = False, space_group=None):
         super().__init__()
+        self.cfg = cfg
         self.iters = iters
-        self.dtype = dtype
+        self.dtype = cfg.dtype
         self.interp_scale = interp_scale
         self.collect_preds = collect_preds
         self.space_group = space_group  # the ring's process group, or None
-        self.update_block = SequenceUpdateBlock3D(with_attention, with_init_hidden, dtype)
+        self.update_block = SequenceUpdateBlock3D(
+            cfg.hidden_dim, cfg.corr_levels * (2 * cfg.corr_radius + 1),
+            cfg.dim - cfg.hidden_dim, cfg.use_convex_3d, attention_type, with_init_hidden,
+            cfg.dtype)
 
     def _play(self, query_pe, key_aug, value, idx, score_norm):
         """Gather the picked memory frames and attend over them.
@@ -99,6 +194,9 @@ class PPMUpdateLoop(nn.Module):
         b, t, h, w, c = query_pe.shape
         k = idx.shape[-1]
         scale = play_scale(c)
+        if self.cfg.force_xla_attention and query_pe.is_cuda:
+            raise ValueError("force_xla_attention=True: the port has no switch that bypasses "
+                             "the play kernel on a card (the plain play is the CPU's route)")
         group = self.space_group
         n = dist.get_world_size(group) if group is not None else 1
         ring = n > 1 and h % n == 0  # else every rank runs the whole play
@@ -135,6 +233,7 @@ class PPMUpdateLoop(nn.Module):
         None in test mode."""
         pyramid, coords0, query_pe, key_aug, sim_score, inp = stage
         dtype = self.dtype
+        radius = self.cfg.corr_radius
         ub = self.update_block
         b, t, h, w, _ = flow.shape
         # 1. pyramid lookup around the current disparity (f32 blend, features
@@ -142,9 +241,9 @@ class PPMUpdateLoop(nn.Module):
         # lookup in train mode (collect_preds)
         coords_x = coords0 + flow[..., 0].reshape(b * t, h, w)
         if self.collect_preds:
-            corrs = corr_lookup(pyramid, coords_x, CORR_RADIUS).to(dtype)
+            corrs = corr_lookup(pyramid, coords_x, radius).to(dtype)
         else:
-            corrs = corr_lookup_kernel(pyramid, coords_x, CORR_RADIUS, out_dtype=dtype)
+            corrs = corr_lookup_kernel(pyramid, coords_x, radius, out_dtype=dtype)
         corrs = corrs.reshape(b, t, h, w, -1)
         # 2. motion features, recurrent state, value
         motion, motion_hidden, value = ub.get_motion_and_value(
@@ -160,7 +259,7 @@ class PPMUpdateLoop(nn.Module):
         # the same picks: both evaluations gather the selected scores (topk's
         # values and gradient) at the indices the first one chose
         if not picked:
-            idx = torch.topk(frame_score.detach(), min(TOP_K, t), dim=-1).indices
+            idx = torch.topk(frame_score.detach(), min(self.cfg.top_k, t), dim=-1).indices
             if self.space_group is not None:  # one set of picks for the ring
                 idx = ring_attention.broadcast_from_first(idx, self.space_group)
             picked.append(idx)
@@ -182,13 +281,21 @@ class PPMUpdateLoop(nn.Module):
         flow = flow + delta.float()
         return flow, net, motion_hidden, strive, uncertainty, mask
 
+    def _upsample(self, flow, mask):
+        """The convex upsample by 4: 3-D, or per frame (`use_convex_3d=False`)."""
+        if self.cfg.use_convex_3d:
+            return convex_upsample_3d(flow, mask, rate=4)
+        b, t, h, w, _ = flow.shape
+        up = convex_upsample_2d(flow.reshape(b * t, h, w, 2), mask.reshape(b * t, h, w, -1), 4)
+        return up.reshape(b, t, 4 * h, 4 * w, 2)
+
     def _full_res(self, flow, mask, uncertainty):
         """Train-mode outputs of one iteration at full resolution: the
-        convex 3-D upsample (x4) of the disparity, then a bilinear
+        convex upsample (x4) of the disparity, then a bilinear
         align-corners resize by interp_scale (x`interp_scale` values), and
         the uncertainty resized by 4 * interp_scale (align_corners=False)."""
         s = self.interp_scale
-        flow_up = convex_upsample_3d(flow, mask, rate=4)
+        flow_up = self._upsample(flow, mask)
         h, w = uncertainty.shape[2], uncertainty.shape[3]
         unc_up = interp_ac_false(uncertainty.float(), (4 * s * h, 4 * s * w))
         if s > 1:
@@ -211,21 +318,22 @@ class PPMUpdateLoop(nn.Module):
         strive = torch.ones(b, t, t, device=flow.device)
         uncertainty = mask = None
         preds, uncs = [], []
+        run = self._iteration
+        if self.collect_preds:
+            def run(*args):
+                return checkpoint(self._iteration, *args, use_reentrant=False,
+                                  preserve_rng_state=False)
         for _ in range(self.iters if iters is None else iters):
             picked: list = []
+            flow, net, motion_hidden, strive, uncertainty, mask = run(
+                stage, flow, net, motion_hidden, strive, picked, picks)
             if self.collect_preds:
-                flow, net, motion_hidden, strive, uncertainty, mask = checkpoint(
-                    self._iteration, stage, flow, net, motion_hidden, strive, picked, picks,
-                    use_reentrant=False, preserve_rng_state=False)
                 pred, unc = self._full_res(flow, mask, uncertainty)
                 preds.append(pred)
                 uncs.append(unc)
-            else:
-                flow, net, motion_hidden, strive, uncertainty, _ = self._iteration(
-                    stage, flow, net, motion_hidden, strive, picked, picks)
         if mask is None:  # test mode reads the mask of the final state only
             mask = self.update_block.get_mask(net)
-        flow_up = convex_upsample_3d(flow, mask, rate=4)
+        flow_up = self._upsample(flow, mask)
         if not self.collect_preds:
             return flow, flow_up, net, motion_hidden, uncertainty, None, None
         return (flow, flow_up, net, motion_hidden, uncertainty,
@@ -241,7 +349,9 @@ class PPMStereo(nn.Module):
                          (n,B,T,H,W,1)) of all n = 2 (iters // 2) + iters
                          iterations, at full resolution (training)
 
-    num_frames sizes the SST time embedding (the training clip length).
+    cfg: the architecture (`PPMStereoConfig`; its num_frames sizes the SST
+    time embedding, the training clip length). iters: the 1/4 stage's
+    iterations (the 1/16 and 1/8 stages run iters // 2, at least 1).
     Autograd is the caller's choice: inference callers run it under
     `torch.no_grad()`.
 
@@ -249,35 +359,38 @@ class PPMStereo(nn.Module):
     play steps run as the ring over it (test mode only). The data and seq
     axes are not ported yet and must be 1."""
 
-    def __init__(self, iters: int = 10, mixed_precision: bool = True,
-                 test_mode: bool = False, num_frames: int = 5, mesh=None):
+    def __init__(self, cfg: PPMStereoConfig = PPMStereoConfig(), iters: int = 10,
+                 test_mode: bool = False, mesh=None):
         super().__init__()
         space_group = None
         if mesh is not None:
             if mesh.shape["data"] > 1 or mesh.shape["seq"] > 1:
                 raise NotImplementedError(
                     f"mesh {mesh.shape}: the port shards the space axis only; the data "
-                    "and seq axes are later work (ROADMAP)")
+                    "and seq axes are later work (ROADMAP §1 item 7)")
             if mesh.shape["space"] > 1:
                 if not test_mode:
                     raise ValueError("the ring play attention is inference only: a mesh "
                                      "with space > 1 needs test_mode=True")
                 space_group = mesh.groups["space"]
+        self.cfg = cfg
         self.test_mode = test_mode
-        self.dtype = dtype = torch.bfloat16 if mixed_precision else torch.float32
-        self.fnet = BasicEncoder(DIM, dtype)
-        self.cnet = ContextNet(DIM, dtype)
+        self.dtype = dtype = cfg.dtype
+        self.fnet = BasicEncoder(cfg.dim, dtype)
+        if cfg.use_cnet:
+            self.cnet = ContextNet(cfg.dim, dtype)
         for i in range(3):
-            self.add_module(f"att_{i}", AttentionQK(DIM - HIDDEN_DIM, CONTEXT_DIM, dtype))
-        self.sst = SSTBlock(DIM, SST_DEPTH, dtype, num_frames)
+            self.add_module(f"att_{i}", AttentionQK(cfg.dim - cfg.hidden_dim, cfg.context_dim,
+                                                    dtype))
+        self.sst = SSTBlock(cfg.dim, cfg.sst_depth, dtype, cfg.num_frames, cfg.attention_type)
         half = max(iters // 2, 1)
         train = not test_mode
-        self.update_block16 = PPMUpdateLoop(half, dtype, with_attention=True,
+        self.update_block16 = PPMUpdateLoop(cfg, half, cfg.attention_type,
                                             with_init_hidden=True, interp_scale=4,
                                             collect_preds=train, space_group=space_group)
-        self.update_block08 = PPMUpdateLoop(half, dtype, interp_scale=2, collect_preds=train,
+        self.update_block08 = PPMUpdateLoop(cfg, half, interp_scale=2, collect_preds=train,
                                             space_group=space_group)
-        self.update_block04 = PPMUpdateLoop(iters, dtype, collect_preds=train,
+        self.update_block04 = PPMUpdateLoop(cfg, iters, collect_preds=train,
                                             space_group=space_group)
 
     def compute_qk_similarity(self, query, key):
@@ -295,30 +408,46 @@ class PPMStereo(nn.Module):
         b, t, h, w, _ = fmap1.shape
         pyramid = build_corr_pyramid(fmap1.reshape(b * t, h, w, -1),
                                      fmap2.reshape(b * t, h, w, -1),
-                                     CORR_LEVELS)
+                                     self.cfg.corr_levels)
         coords0 = coords_grid_x(b * t, h, w, device=fmap1.device)
         query, key = getattr(self, f"att_{stage}")(inp)
         sim_score = self.compute_qk_similarity(query, key)
-        te = torch.from_numpy(temporal_positional_encoding(t, CONTEXT_DIM))
+        te = torch.from_numpy(temporal_positional_encoding(t, self.cfg.context_dim))
         te_b = te.to(fmap1.device, self.dtype)[None, :, None, None, :]
         key_aug = torch.cat([key, te_b.expand(key.shape)], dim=-1)
         query_pe = query + te_b
         return pyramid, coords0, query_pe, key_aug, sim_score
 
-    def encode_frames(self, image1, image2):
-        """Per-frame features: fmap1, fmap2 (fnet) and cnet4/8/16 (cnet)."""
+    def encode_frames(self, image1, image2, frames_per_call: int | None = None):
+        """Per-frame features: fmap1, fmap2 (fnet) and, with the context
+        net, cnet4/8/16; the encoders run on `frames_per_call` frames a call
+        (default: all at once), joined along time."""
+        t = image1.shape[1]
+        n = frames_per_call or t
+        parts = [self._encode(image1[:, s:s + n], image2[:, s:s + n]) for s in range(0, t, n)]
+        if len(parts) == 1:
+            return parts[0]
+        return {k: torch.cat([p[k] for p in parts], dim=1) for k in parts[0]}
+
+    def _encode(self, image1, image2):
         b = image1.shape[0]
         image1 = (2.0 * (image1 / 255.0) - 1.0).to(self.dtype)
         image2 = (2.0 * (image2 / 255.0) - 1.0).to(self.dtype)
         fmaps = self.fnet(torch.cat([image1, image2], dim=0))
-        cnet4, cnet8, cnet16 = self.cnet(image1)
-        return dict(fmap1=fmaps[:b], fmap2=fmaps[b:], cnet4=cnet4, cnet8=cnet8, cnet16=cnet16)
+        feats = dict(fmap1=fmaps[:b], fmap2=fmaps[b:])
+        if self.cfg.use_cnet:
+            feats.update(zip(("cnet4", "cnet8", "cnet16"), self.cnet(image1)))
+        return feats
 
     def _context(self, feat, cnet_feat):
-        """(net, inp): features averaged with the cnet features, split into
-        the GRU state (tanh) and the context input (relu)."""
-        net = (feat[..., :HIDDEN_DIM] + cnet_feat[..., :HIDDEN_DIM]) / 2.0
-        inp = (feat[..., HIDDEN_DIM:] + cnet_feat[..., HIDDEN_DIM:]) / 2.0
+        """(net, inp): the features (averaged with the cnet features when
+        there is a context net) split into the GRU state (tanh) and the
+        context input (relu)."""
+        hdim = self.cfg.hidden_dim
+        net, inp = feat[..., :hdim], feat[..., hdim:]
+        if cnet_feat is not None:
+            net = (net + cnet_feat[..., :hdim]) / 2.0
+            inp = (inp + cnet_feat[..., hdim:]) / 2.0
         return torch.tanh(net), F.relu(inp)
 
     def forward(self, image1, image2, flow_init=None, feats: dict | None = None,
@@ -347,7 +476,7 @@ class PPMStereo(nn.Module):
             feats = self.encode_frames(image1, image2)
         fmap1, fmap2 = feats["fmap1"], feats["fmap2"]
         b, t, h4, w4, _ = fmap1.shape
-        net, inp = self._context(fmap1, feats["cnet4"])
+        net, inp = self._context(fmap1, feats.get("cnet4"))
 
         if flow_init is not None:
             fi = flow_init.float()
@@ -364,11 +493,11 @@ class PPMStereo(nn.Module):
             return flow_up4[..., :1], interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
 
         f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
-        net16, inp16 = self._context(f1_16, feats["cnet16"])
+        net16, inp16 = self._context(f1_16, feats.get("cnet16"))
         h8, w8 = h4 // 2, w4 // 2
         f1_8 = (avg_pool2d(fmap1, 2) + interp_bilinear(f1_16, (h8, w8))) / 2.0
         f2_8 = (avg_pool2d(fmap2, 2) + interp_bilinear(f2_16, (h8, w8))) / 2.0
-        net8, inp8 = self._context(f1_8, feats["cnet8"])
+        net8, inp8 = self._context(f1_8, feats.get("cnet8"))
 
         # stage 1/16
         flow16 = torch.zeros(b, t, h4 // 4, w4 // 4, 2, device=fmap1.device)

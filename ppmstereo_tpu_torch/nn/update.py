@@ -1,7 +1,6 @@
 """Sequence update block: the recurrent refinement cell of PPMStereo
 (counterpart of ppmstereo_tpu/nn/update.py::FlowHead, Aggregate,
-SequenceUpdateBlock3D; the 3-D convex-mask variant). Tensors are
-(B, T, H, W, C)."""
+SequenceUpdateBlock3D). Tensors are (B, T, H, W, C)."""
 
 from __future__ import annotations
 
@@ -14,8 +13,8 @@ from ppmstereo_tpu_torch.nn.common import Conv
 from ppmstereo_tpu_torch.nn.gru import SKSepConvGRU3D
 from ppmstereo_tpu_torch.nn.motion import BasicMotionEncoderV2
 
-HIDDEN_DIM = 128
-COR_PLANES = 4 * (2 * 4 + 1)  # 4 correlation levels x (2 * radius 4 + 1) taps
+MOTION_DIM = 128  # the motion features (126 + the 2-channel flow) and the value
+GRU_ATTN_DIM = 384  # the update attention's width, fixed as in the JAX package
 
 
 class FlowHead(nn.Module):
@@ -45,29 +44,39 @@ class Aggregate(nn.Module):
 
 class SequenceUpdateBlock3D(nn.Module):
     """Motion encoder, 3-D separable GRU, flow / uncertainty heads and the
-    mask head of the 3-D convex upsample by 4 (27 taps x 4 x 4 channels),
-    at the shipped widths: hidden state and context 128, 4 levels x 9 taps
-    of correlation. The first stage's cell also attends over time and space
-    before its GRU (`with_attention`) and bootstraps the motion hidden
-    state from the context (`with_init_hidden`)."""
+    mask head of the convex upsample by 4: 27 taps x 4 x 4 channels from a
+    3x3x3 conv (`use_convex_3d`), else 9 x 4 x 4 from a 3x3 one.
 
-    def __init__(self, with_attention: bool = False, with_init_hidden: bool = False,
-                 dtype: torch.dtype = torch.float32):
+    hidden_dim is the GRU state's width, cor_planes the lookup's channels
+    (levels x (2 radius + 1)), inp_dim the context input's width (the
+    features' `dim - hidden_dim`). The GRU reads cat[context, motion, play
+    output], inp_dim + 256 wide. Before it, the first stage's cell attends
+    over time (`"update_time"` in attention_type) and space
+    (`"update_space"`), 384 wide as in the JAX package, and bootstraps the
+    motion hidden state from the context (`with_init_hidden`)."""
+
+    def __init__(self, hidden_dim: int = 128, cor_planes: int = 36, inp_dim: int = 128,
+                 use_convex_3d: bool = True, attention_type: str | None = None,
+                 with_init_hidden: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
-        d = HIDDEN_DIM
-        self.encoder = BasicMotionEncoderV2(COR_PLANES, d, with_init_hidden, dtype)
-        self.gru = SKSepConvGRU3D(d, 3 * d, dtype)
+        d, m = hidden_dim, MOTION_DIM
+        self.encoder = BasicMotionEncoderV2(cor_planes, inp_dim, with_init_hidden, dtype)
+        self.gru = SKSepConvGRU3D(d, inp_dim + 2 * m, dtype)
         self.flow_head = FlowHead(d, dtype)
-        self.unc_conv1 = Conv(2 * d, d, (3, 3), dtype=dtype)
+        self.unc_conv1 = Conv(d + m, d, (3, 3), dtype=dtype)
         self.unc_conv2 = Conv(d, 1, (1, 1), padding=(0, 0), dtype=dtype)
-        self.mask_conv1 = Conv(d, 2 * d, (3, 3, 3), dtype=dtype)
-        self.mask_conv2 = Conv(2 * d, 27 * 4 * 4, (1, 1, 1),
-                               padding=(0, 0, 0), dtype=dtype)
-        self.with_attention = with_attention
-        if with_attention:
-            self.time_attn = TimeAttnBlock(3 * d, 8, dtype)
-            self.space_attn = SpaceAttnBlock(3 * d, 8, dtype)
-        self.aggregator = Aggregate(d, dtype)
+        taps, kernel = (27, (3, 3, 3)) if use_convex_3d else (9, (3, 3))
+        self.mask_conv1 = Conv(d, d + m, kernel, dtype=dtype)
+        self.mask_conv2 = Conv(d + m, taps * 4 * 4, (1,) * len(kernel),
+                               padding=(0,) * len(kernel), dtype=dtype)
+        at = attention_type or ""
+        self.with_time_attn = "update_time" in at
+        self.with_space_attn = "update_space" in at
+        if self.with_time_attn:
+            self.time_attn = TimeAttnBlock(GRU_ATTN_DIM, 8, dtype)
+        if self.with_space_attn:
+            self.space_attn = SpaceAttnBlock(GRU_ATTN_DIM, 8, dtype)
+        self.aggregator = Aggregate(m, dtype)
 
     def init_motion_hidden_state(self, inp: torch.Tensor) -> torch.Tensor:
         return self.encoder.init_hidden(inp)
@@ -90,8 +99,10 @@ class SequenceUpdateBlock3D(nn.Module):
         of the new state: (net, delta_flow, mask). Inference reads the mask
         once after the loop (`get_mask`)."""
         x = torch.cat([inp, motion_features, motion_features_global], dim=-1)
-        if self.with_attention:
-            x = self.space_attn(self.time_attn(x))
+        if self.with_time_attn:
+            x = self.time_attn(x)
+        if self.with_space_attn:
+            x = self.space_attn(x)
         net = self.gru(net, x)
         if compute_mask:
             return net, self.flow_head(net), self.get_mask(net)

@@ -1,15 +1,17 @@
 """The one-card training loop (counterpart of ppmstereo_tpu/train/trainer.py
 for PPMStereo on one device in one process): data -> train step ->
-metrics -> checkpoints.
+metrics -> checkpoints -> in-training evaluation.
 
     state = train(TrainConfig(num_steps=1000), device="cuda")
 
-A fresh run starts from `utils/init.py`'s initialisation (seeded with
-`cfg.seed`), or from flat flax parameters given as `init_params` (e.g.
-`load_npz("checkpoints/anchor_r5.npz")`) with a fresh optimiser; a run
-whose `exp_dir` holds a checkpoint resumes from it. The mesh options of the
-JAX trainer (data, sequence and space parallelism) and the other models of
-the zoo wait for later slices of the port.
+The model is `PPMStereoConfig(num_frames=sample_len, mixed_precision=...,
+**model_kwargs)`. A fresh run starts from `utils/init.py`'s initialisation
+(seeded with `cfg.seed`), or from flat flax parameters given as
+`init_params` (e.g. `load_npz("checkpoints/anchor_r5.npz")`) with a fresh
+optimiser; a run whose `exp_dir` holds a checkpoint resumes from it. The
+JAX trainer's mesh (data, sequence and space parallelism; ROADMAP §1 item
+7) and uint8 images on the wire are refused, and the other models of the zoo
+wait for later slices of the port (item 8).
 """
 
 from __future__ import annotations
@@ -22,20 +24,24 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo
+from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 from ppmstereo_tpu_torch.train.checkpoints import CheckpointManager
 from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState
 from ppmstereo_tpu_torch.train.step import to_device, train_step
 from ppmstereo_tpu_torch.utils.device import resolve_device, set_precision
 from ppmstereo_tpu_torch.utils.init import init_ppmstereo
 from ppmstereo_tpu_torch.utils.logging_utils import MetricsLogger
-from ppmstereo_tpu_torch.utils.weights import load_flax_params
+from ppmstereo_tpu_torch.utils.weights import load_flax_params, state_dict_to_flax
 
 
 @dataclass
 class TrainConfig:
-    """The JAX package's TrainConfig defaults (the shipped recipe) for the
-    fields a one-card PPMStereo run reads."""
+    """The JAX package's TrainConfig with its defaults (the shipped recipe).
+    model_kwargs: further `PPMStereoConfig` fields (e.g. {"use_cnet":
+    False}). The mesh (data_parallel, seq_parallel, space_parallel: 0 or 1
+    each) and wire_uint8 exist for the JAX package's presets; a mesh above
+    one device or uint8 images raise in `train` (the port ships f32 images
+    to the card, as the JAX package's wire_dtype is omitted)."""
 
     model_name: str = "ppmstereo"
     num_steps: int = 200_000
@@ -48,30 +54,98 @@ class TrainConfig:
     exp_dir: str = "./outputs/train"
     ckpt_after_steps: int = 80_000
     save_freq: int = 5_000
+    eval_freq: int = 5_000
     num_workers: int = 4
     seed: int = 0
     log_freq: int = 100  # running-mean flush interval
+    model_kwargs: dict | None = None
+    data_parallel: int = 0  # 0: all devices, which is one here
+    seq_parallel: int = 1
+    space_parallel: int = 1
+    wire_uint8: bool = False
+
+
+def check_supported(cfg: TrainConfig) -> None:
+    """Raise for the JAX trainer's options the port does not run."""
+    mesh = {"data_parallel": cfg.data_parallel, "seq_parallel": cfg.seq_parallel,
+            "space_parallel": cfg.space_parallel}
+    if any(n > 1 for n in mesh.values()):
+        raise NotImplementedError(f"{mesh}: the port trains on one card in one process; DDP "
+                                  "and seq/space training are ROADMAP §1 item 7")
+    if cfg.wire_uint8:
+        raise NotImplementedError("wire_uint8=True: the port ships f32 images to the card "
+                                  "(omitted on purpose, as the predictor's wire_dtype is; "
+                                  "ROADMAP §3)")
 
 
 def build_train_model(cfg: TrainConfig) -> PPMStereo:
     if cfg.model_name not in ("ppmstereo", "memstereo"):
         raise ValueError(f"model {cfg.model_name!r}: the port trains PPMStereo only; "
-                         "the rest of the zoo is a later slice (ROADMAP)")
-    return PPMStereo(cfg.train_iters, cfg.mixed_precision, test_mode=False,
-                     num_frames=cfg.sample_len)
+                         "the rest of the zoo is a later slice (ROADMAP §1 item 8)")
+    mcfg = PPMStereoConfig(num_frames=cfg.sample_len, mixed_precision=cfg.mixed_precision,
+                           **(cfg.model_kwargs or {}))
+    return PPMStereo(mcfg, cfg.train_iters, test_mode=False)
+
+
+def build_eval_predictor(cfg: TrainConfig, params: Mapping[str, np.ndarray],
+                         eval_iters: int = 10, kernel_size: int = 10,
+                         device: str | torch.device | None = None):
+    """A test-mode predictor of the training model's configuration over the
+    flat flax `params` (the current ones, for in-training evaluation)."""
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+
+    return model_zoo("PPMStereoModel", kernel_size=kernel_size, iters=eval_iters,
+                     params=params, device=device, num_frames=cfg.sample_len,
+                     mixed_precision=cfg.mixed_precision, **(cfg.model_kwargs or {}))
+
+
+def run_in_training_eval(cfg: TrainConfig, params: Mapping[str, np.ndarray], step: int,
+                         logger: MetricsLogger, eval_dataset=None,
+                         device: str | torch.device | None = None) -> dict:
+    """Evaluate the current parameters on `eval_dataset` (by default two
+    synthetic clips of 4 frames at the crop size): the results go to
+    `<exp_dir>/result_intrain_<step>.json` and, prefixed `eval/`, to the
+    metrics log; where the logger has a TensorBoard writer, the first
+    clip's first disparity map goes there as an image."""
+    from ppmstereo_tpu_torch.evaluation.evaluator import EvalConfig, Evaluator
+    from ppmstereo_tpu_torch.evaluation.visualization import colorize_disparity
+
+    if eval_dataset is None:
+        from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
+
+        eval_dataset = SyntheticStereoDataset(num_seqs=2, sample_len=4,
+                                              height=cfg.crop_size[0], width=cfg.crop_size[1])
+    predictor = build_eval_predictor(cfg, params, device=device)
+    evaluator = Evaluator(EvalConfig(exp_dir=cfg.exp_dir))
+    results = evaluator.evaluate_sequence(predictor, eval_dataset)
+    evaluator.dump(results, "intrain", step)
+    logger.write_dict(step, results["aggregate"], prefix="eval/")
+    if logger.writer is not None:
+        out = predictor({"stereo_video": eval_dataset[0]["img"][:2]})
+        img = colorize_disparity(out["disparity"][0, ..., 0])
+        logger.writer.add_image("eval/disparity", img.transpose(2, 0, 1), step)
+    return results
 
 
 def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
+          eval_dataset=None, enable_eval: bool = False, save_callback=None,
           init_params: Mapping[str, np.ndarray] | None = None,
           device: str | torch.device | None = None) -> TrainState:
     """Run training on `device` (`cuda` unless another is named; raises
     without a card) and return the final state. `loader` defaults to
-    `fetch_dataloader` (the synthetic dataset) and is iterated again at
-    each epoch: a one-shot iterator must yield every step's batch, and a
-    pass that yields none raises. `max_steps` stops the run early without
-    changing the schedule (which spans cfg.num_steps)."""
+    `fetch_dataloader` (the SceneFlow + Dynamic Replica mixture, or the
+    synthetic dataset) and is iterated again at each epoch: a one-shot
+    iterator must yield every step's batch, and a pass that yields none
+    raises. `max_steps` stops the run early without changing the schedule
+    (which spans cfg.num_steps).
+
+    Every save_freq steps after ckpt_after_steps the state is saved and
+    `save_callback(step, state)` runs right after. With enable_eval, every
+    eval_freq steps `run_in_training_eval` scores the current parameters
+    on `eval_dataset`."""
     from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
 
+    check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
@@ -110,6 +184,11 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
                 logger.push(state.step, metrics)
             if state.step % cfg.save_freq == 0 and state.step > cfg.ckpt_after_steps:
                 ckpt.save(state)
+                if save_callback is not None:
+                    save_callback(state.step, state)
+            if enable_eval and state.step % cfg.eval_freq == 0:
+                run_in_training_eval(cfg, state_dict_to_flax(model.state_dict()), state.step,
+                                     logger, eval_dataset, device=dev)
             if state.step >= limit:
                 break
         if state.step == start:

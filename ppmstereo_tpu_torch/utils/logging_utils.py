@@ -51,6 +51,17 @@ class MetricsLogger:
         self.running.clear()
         self.counts.clear()
 
+    def write_dict(self, step: int, metrics: dict, prefix: str = "") -> None:
+        """Write one record of `metrics` now (keys prefixed), beside the
+        running means: the in-training evaluation's results."""
+        rec = {"step": step, "time": time.time()}
+        for k, v in metrics.items():
+            rec[f"{prefix}{k}"] = float(v)
+            if self.writer is not None:
+                self.writer.add_scalar(f"{prefix}{k}", float(v), step)
+        with open(self.path, "a") as f:
+            f.write(json.dumps(rec) + "\n")
+
     def close(self) -> None:
         if self.writer is not None:
             self.writer.close()

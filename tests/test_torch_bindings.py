@@ -213,12 +213,12 @@ def test_kernel_5_is_a_mode_of_the_forward_library():
 
 
 def test_lookup_binding_takes_the_dtypes():
-    """Kernel 6's entry point takes four level pointers and widths as
-    scalars (no ctypes arrays built per call) and the pyramid's and the
-    output's dtype as two int flags."""
+    """Kernel 6's entry point takes its six level pointers and widths (the
+    level counts 1 to 6 it is built for) as scalars (no ctypes arrays built
+    per call) and the pyramid's and the output's dtype as two int flags."""
     _, params = FUNCTIONS["corr_lookup"]
     assert [p.rsplit(None, 1)[1] for p in params] == [
-        "level0", "level1", "level2", "level3", "width0", "width1", "width2", "width3",
+        *(f"level{i}" for i in range(6)), *(f"width{i}" for i in range(6)),
         "num_levels", "radius", "coords", "out", "pixels", "pyramid_bf16", "out_bf16", "stream"]
 
 

@@ -195,7 +195,7 @@ def test_space_attn_block(rng):
 def test_sst_block(rng, t):
     # t=3 exercises the nearest-frame interpolation of the time embedding
     _run(jsst.SSTBlock(dim=32, depth=2, num_frames=5, attention_type=AT),
-         tsst.SSTBlock(32, 2),
+         tsst.SSTBlock(32, 2, attention_type=AT),
          [_randn(rng, 1, t, 3, 4, 32), _randn(rng, 1, t, 3, 4, 32)], rng, DEEP)
 
 
@@ -265,5 +265,5 @@ def test_sequence_update_block_3d(rng, attention_type):
             np.tanh(_randn(rng, *shape, 128)), np.maximum(_randn(rng, *shape, 128), 0)]
     _run(jupdate.SequenceUpdateBlock3D(hidden_dim=128, cor_planes=36, mask_size=4,
                                        attention_type=attention_type),
-         tupdate.SequenceUpdateBlock3D(attention_type is not None, with_init_hidden=True),
+         tupdate.SequenceUpdateBlock3D(attention_type=attention_type, with_init_hidden=True),
          args, rng, DEEP, method=entries, tmethod=tentries)

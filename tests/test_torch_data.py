@@ -170,10 +170,21 @@ def test_loader_raises_a_worker_failure():
 
 
 def test_fetch_dataloader_refuses_datasets_it_cannot_read(tmp_path):
+    """A SceneFlow root with nothing readable in it is a part of the
+    mixture, as in the JAX package, not a reason to fall back: its loader
+    has no batch, and training on it raises. With no root on disk the
+    synthetic fallback trains."""
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
+
     (tmp_path / "SceneFlow").mkdir()
-    with pytest.raises(NotImplementedError, match="no reader"):
-        tds.fetch_dataloader(sceneflow_root=str(tmp_path / "SceneFlow"),
-                             dynamic_replica_root=str(tmp_path / "none"))
+    kw = dict(crop_size=(64, 96), sample_len=2, batch_size=1, num_workers=1,
+              sceneflow_root=str(tmp_path / "SceneFlow"),
+              dynamic_replica_root=str(tmp_path / "none"))
+    empty = tds.fetch_dataloader(**kw)
+    assert len(empty) == len(jds.fetch_dataloader(**kw)) == 0
+    with pytest.raises(ValueError, match="yielded no batch"):
+        train(TrainConfig(num_steps=1, exp_dir=str(tmp_path / "run")), loader=empty,
+              device="cpu")
     loader = tds.fetch_dataloader(crop_size=(64, 96), sample_len=2, batch_size=1,
                                   num_workers=1, sceneflow_root=str(tmp_path / "none"),
                                   dynamic_replica_root=str(tmp_path / "none"))

@@ -261,10 +261,10 @@ def test_evaluate_cli_real_captures(tmp_path, predictor):
 def test_cli_loads_a_trainer_checkpoint(dr_root, tmp_path):
     """MODEL.checkpoint as a directory of the port's trainer: the newest
     step_<n>.pt's parameters, the same predictions as the anchor's npz."""
-    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
     from ppmstereo_tpu_torch.utils.weights import load_flax_params
 
-    model = PPMStereo(iters=1, mixed_precision=False)
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=1)
     load_flax_params(model, load_npz(ANCHOR))
     ckpt = tmp_path / "train"
     ckpt.mkdir()
@@ -290,7 +290,7 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="no frames"):
         tdemo.main(["--device", "cpu", "--left", str(tmp_path), "--right", str(tmp_path),
                     "--iters", "1", "--model_kwargs", "mixed_precision=False"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 2"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.2"):
         tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])
     real = load_yaml(tcli.DefaultConfig, str(PRESETS / "eval_real.yaml"))
     with pytest.raises(ValueError, match="unknown model 'DynamicStereoModel'"):

@@ -75,7 +75,8 @@ def test_forward_with_feats_matches_jax(anchor, entry_clip):
         return jm.apply(params, l, r, feats=feats)
 
     jd, ju = (np.asarray(x) for x in jax.jit(jfwd)(tree, jl, jr))
-    tm = tppm.PPMStereo(iters=ITERS, mixed_precision=False, test_mode=True)
+    tm = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=ITERS,
+                         test_mode=True)
     load_flax_params(tm, flat)
     tl, tr = torch.from_numpy(left), torch.from_numpy(right)
     with torch.no_grad():
@@ -103,7 +104,8 @@ def test_forward_with_flow_init_matches_jax(anchor, entry_clip):
     jd, ju = (np.asarray(x) for x in jax.jit(
         lambda p, l, r, f: jm.apply(p, l, r, flow_init=f))(
         tree, jnp.asarray(left), jnp.asarray(right), jnp.asarray(flow_init)))
-    tm = tppm.PPMStereo(iters=ITERS, mixed_precision=False, test_mode=True)
+    tm = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=ITERS,
+                         test_mode=True)
     load_flax_params(tm, flat)
     picks: list = []
     with torch.no_grad():

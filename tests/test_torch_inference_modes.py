@@ -143,6 +143,41 @@ def test_strict_modes_match_the_port_strict_run(port_outputs, mode):
         np.testing.assert_allclose(got[name], strict[name], rtol=0, atol=tol)
 
 
+def test_encoder_cache_is_bit_equal_to_strict(port_outputs):
+    """The predictor runs the encoders on gcd(K, K // 2) frames a call, so a
+    cached frame's features are the bits a strict window computes for it,
+    and the cached run equals the strict run exactly."""
+    strict, got = port_outputs("strict"), port_outputs("encoder_cache")
+    for name in ("disparity", "uncertainties"):
+        np.testing.assert_array_equal(got[name], strict[name])
+
+
+@pytest.mark.parametrize("k,chunk", [(6, 3), (10, 5), (20, 10), (9, None)])
+def test_windows_encode_in_calls_of_gcd_frames(anchor, k, chunk):
+    """The zoo's window, warm window and cache encoder run the encoders on
+    gcd(k, k // 2) frames a call, or on the whole window where that is 1."""
+    flat, _ = anchor
+    pred = tmodel_zoo("PPMStereoModel", kernel_size=k, iters=1, params=flat, device="cpu",
+                      mixed_precision=False, warm_start=True, encoder_cache=True)
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(left, right, frames_per_call=None):
+        seen.append(frames_per_call)
+        raise Stop
+
+    pred.model.encode_frames = spy
+    x = torch.zeros(1, k, 8, 8, 3)
+    p = pred.predictor
+    for call in (lambda: p.window_fn(x, x), lambda: p.warm_window_fn(x, x, x[..., :1]),
+                 lambda: p.encode_window_fn(x, x)):
+        with pytest.raises(Stop):
+            call()
+    assert seen == [chunk] * 3
+
+
 def test_mode_switches_of_the_predictor(anchor):
     """Which chains a zoo predictor runs: the encoder cache needs
     overlapping windows run one at a time."""
@@ -169,7 +204,7 @@ def test_zoo_builds_random_weights_from_a_seed_and_loads_params(anchor):
     flat, _ = anchor
     pred = tmodel_zoo("PPMStereoModel", kernel_size=K, iters=ITERS, params=None, seed=3,
                       device="cpu", mixed_precision=False)
-    want = tppm.PPMStereo(ITERS, False, test_mode=True)
+    want = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), ITERS, test_mode=True)
     init_ppmstereo(want, 3)
     for (name, p), q in zip(pred.model.state_dict().items(), want.state_dict().values()):
         assert torch.equal(p, q), name

@@ -85,7 +85,7 @@ def test_forward_matches_jax_with_identical_picks(anchor, monkeypatch):
     jd, ju = np.asarray(jd), np.asarray(ju)
     jax.effects_barrier()
 
-    tm = tppm.PPMStereo(iters=4, mixed_precision=False, test_mode=True)
+    tm = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=4, test_mode=True)
     load_flax_params(tm, flat)
     port_picks = []
     with torch.no_grad():
@@ -148,7 +148,8 @@ def test_model_of_another_clip_length_loads_the_anchor(anchor):
                     iters=2, test_mode=True)
     jd, ju = (np.asarray(x) for x in jax.jit(jm.apply)(tree, jnp.asarray(left),
                                                          jnp.asarray(right)))
-    tm = tppm.PPMStereo(iters=2, mixed_precision=False, test_mode=True, num_frames=3)
+    tm = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False, num_frames=3), iters=2,
+                        test_mode=True)
     param = tm.sst.time_embed
     load_flax_params(tm, flat)
     assert tm.sst.time_embed is param and tuple(param.shape) == (1, 5, 256)
@@ -252,7 +253,8 @@ def test_lookup_kernel_runs_in_test_mode_only(monkeypatch, test_mode):
     monkeypatch.setattr(tppm, "corr_lookup_kernel", counted_kernel)
     monkeypatch.setattr(tppm, "corr_lookup", counted_plain)
     torch.manual_seed(0)
-    model = tppm.PPMStereo(iters=2, mixed_precision=False, test_mode=test_mode).eval()
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=2,
+                           test_mode=test_mode).eval()
     video, _ = _clip(3, 64, 128)
     with torch.no_grad():
         out = model(torch.from_numpy(video[None, :, 0]), torch.from_numpy(video[None, :, 1]))

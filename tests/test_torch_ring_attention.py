@@ -34,7 +34,7 @@ from ppmstereo_tpu.kernels.play_attention import _LANES, flash_attend_carry
 from ppmstereo_tpu.parallel import mesh as jmesh
 from ppmstereo_tpu.parallel.ring_attention import ring_play_attention as jring
 from ppmstereo_tpu_torch.kernels import play_attention as tpa
-from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo
+from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 from ppmstereo_tpu_torch.parallel.launch import run_group
 from ppmstereo_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
@@ -119,7 +119,7 @@ def test_model_ring_matches_unsharded(anchor, h, w, world, ring_plays):
     rng = np.random.default_rng(3)
     left = rng.uniform(0, 255, (1, 4, h, w, 3)).astype(np.float32)
     right = rng.uniform(0, 255, (1, 4, h, w, 3)).astype(np.float32)
-    model = PPMStereo(iters=2, mixed_precision=False, test_mode=True)
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=2, test_mode=True)
     load_flax_params(model, anchor)
     with torch.no_grad():
         disp, unc = (x.numpy() for x in model(torch.from_numpy(left), torch.from_numpy(right)))
@@ -127,6 +127,30 @@ def test_model_ring_matches_unsharded(anchor, h, w, world, ring_plays):
                         timeout_s=240)
     for rank_disp, rank_unc, messages in results:
         assert messages == ring_plays * world  # n hops, one message each
+        np.testing.assert_array_equal(rank_disp, results[0][0])
+        np.testing.assert_allclose(rank_disp, disp, rtol=1e-4, atol=1e-4)
+        np.testing.assert_allclose(rank_unc, unc, rtol=1e-4, atol=1e-4)
+
+
+def test_model_ring_matches_unsharded_without_cnet(anchor):
+    """Without the context net (`use_cnet=False`, as the JAX package's
+    multi-device tests build the model) the input needs no height of a
+    multiple of 32: at 80 x 96 the stages have 20, 10 and 5 rows, so over 2
+    processes the 1/16 stage's play runs unsharded and the 1/8 and 1/4
+    stages' 3 plays ring."""
+    rng = np.random.default_rng(4)
+    left = rng.uniform(0, 255, (1, 4, 80, 96, 3)).astype(np.float32)
+    right = rng.uniform(0, 255, (1, 4, 80, 96, 3)).astype(np.float32)
+    cfg_kwargs = {"use_cnet": False}
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False, **cfg_kwargs), iters=2,
+                      test_mode=True)
+    load_flax_params(model, workers.anchor_params_of(model, anchor))
+    with torch.no_grad():
+        disp, unc = (x.numpy() for x in model(torch.from_numpy(left), torch.from_numpy(right)))
+    results = run_group(workers.model_forward, 2, (str(ANCHOR), left, right, 2, cfg_kwargs),
+                        timeout_s=240)
+    for rank_disp, rank_unc, messages in results:
+        assert messages == 3 * 2
         np.testing.assert_array_equal(rank_disp, results[0][0])
         np.testing.assert_allclose(rank_disp, disp, rtol=1e-4, atol=1e-4)
         np.testing.assert_allclose(rank_unc, unc, rtol=1e-4, atol=1e-4)

@@ -181,7 +181,7 @@ def test_init_follows_the_jax_initializers(jax_init):
     (and >= 1024 values, so that the std estimate holds to ~3 %) has its std
     within 10 % of JAX's; tensors JAX initialises to a constant (zeros,
     ones) are that constant."""
-    model = tppm.PPMStereo(iters=1, mixed_precision=False)
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=1)
     tinit.init_ppmstereo(model, seed=0)
     got = tweights.state_dict_to_flax(model.state_dict())
     assert set(got) == set(jax_init)
@@ -205,7 +205,7 @@ def _batch():
 
 
 def _port_loss_and_grads(flat, batch, wrong_dk=False, monkeypatch=None):
-    model = tppm.PPMStereo(iters=2, mixed_precision=False)
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=2)
     tweights.load_flax_params(model, flat)
     for name, p in model.named_parameters():
         p.requires_grad_(tstate.param_label(name) != "frozen")
@@ -263,7 +263,7 @@ def test_train_mode_reuses_the_forward_picks_in_the_recomputation(anchor, monkey
     recomputes the iteration without calling topk again."""
     flat, _ = anchor
     batch = _batch()
-    model = tppm.PPMStereo(iters=2, mixed_precision=False)
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=2)
     tweights.load_flax_params(model, flat)
     calls = []
     topk = torch.topk
@@ -312,12 +312,12 @@ def test_npz_export_round_trip(anchor, tmp_path):
     """The export writes the anchor's layout: the same names and shapes,
     readable back into the port (and by both packages' load_npz)."""
     flat, _ = anchor
-    model = tppm.PPMStereo(iters=1, mixed_precision=False)
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=1)
     tinit.init_ppmstereo(model, seed=3)
     tweights.export_npz(model, tmp_path / "export.npz")
     exported = tweights.load_npz(tmp_path / "export.npz")
     assert {k: v.shape for k, v in exported.items()} == {k: v.shape for k, v in flat.items()}
-    back = tppm.PPMStereo(iters=1, mixed_precision=False)
+    back = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=1)
     tweights.load_flax_params(back, exported)
     for (name, a), b in zip(model.state_dict().items(), back.state_dict().values()):
         torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)

@@ -27,18 +27,26 @@ def ring_block(rank, world, spec, q, k, v, scale):
     return (s, p), out.numpy()
 
 
-def model_forward(rank, world, anchor_path, left, right, iters):
-    """The port's f32 test-mode PPMStereo with the play steps ringed over a
-    space mesh of all ranks; returns (disparity, uncertainty, ring messages
-    this rank sent)."""
-    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo
+def anchor_params_of(model, flat):
+    """The anchor's flat parameters that `model` has (a model without the
+    context net has no `cnet/...`)."""
+    names = {"params/" + n.rsplit(".", 1)[0].replace(".", "/") for n in model.state_dict()}
+    return {k: v for k, v in flat.items() if k.rsplit("/", 1)[0] in names}
+
+
+def model_forward(rank, world, anchor_path, left, right, iters, cfg_kwargs=None):
+    """The port's f32 test-mode PPMStereo (at PPMStereoConfig(**cfg_kwargs),
+    with the anchor's parameters that it has) with the play steps ringed
+    over a space mesh of all ranks; returns (disparity, uncertainty, ring
+    messages this rank sent)."""
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
     from ppmstereo_tpu_torch.parallel import ring_attention
     from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
     from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
 
-    model = PPMStereo(iters=iters, mixed_precision=False, test_mode=True,
-                      mesh=make_mesh(MeshSpec(space=world)))
-    load_flax_params(model, load_npz(anchor_path))
+    cfg = PPMStereoConfig(mixed_precision=False, **(cfg_kwargs or {}))
+    model = PPMStereo(cfg, iters=iters, test_mode=True, mesh=make_mesh(MeshSpec(space=world)))
+    load_flax_params(model, anchor_params_of(model, load_npz(anchor_path)))
     with torch.no_grad():
         disp, unc = model(torch.from_numpy(left), torch.from_numpy(right))
     return disp.numpy(), unc.numpy(), ring_attention.shift.messages
