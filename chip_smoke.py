@@ -65,6 +65,25 @@ it stopped):
                same window with every kernel swapped for its plain function
                (a wrong lookup must fail the limit); a play head dim other
                than 128 raises and launches nothing
+  7a''. zoo    the zoo's baselines at their shipped configurations (full
+               width), untrained (the port's seeded initialisation):
+               DynamicStereoModel (bf16, 20 iterations), RAFTStereoModel
+               (f32, 32) and BiDAStereoModel (f32, 10, with its frozen
+               RAFT). Each: the card's f32 path against the CPU path on a
+               small clip (a lookup read one pixel to the right must fail
+               the limits); one strict window of 10 frames at 320x512
+               (BiDAStereo 256x384, to keep the phase near 90 s) through
+               `model_zoo`: seconds (the second call), peak memory, kernel
+               6's launches (40, 32 and 0, required), the device time by
+               layer of a profiled call (BiDAStereo's RAFT, its 2-D pyramid
+               and lookup, TFCL and the flow warps named); for DynamicStereo
+               and RAFT-Stereo the window again with the plain lookup in
+               kernel 6's place, bit-equal required. Then DynamicStereoModel
+               through `run_eval` with the port's `real` preset (40 frames
+               at 720x1280, window 20, 20 iterations, bf16) on a Dynamic
+               Replica-layout real/<sequence> tree written from a synthetic
+               clip: fps, seconds and kernel 6 launches per window (40),
+               peak memory
   7b. eval     the Dynamic Replica 40-frame protocol at 720x1280 (window 20,
                20 iterations, bf16, the anchor) through the evaluate CLI's
                `run_eval` and the port's preset, on a Dynamic Replica tree
@@ -1593,9 +1612,11 @@ def phase_profile(main_run: dict, smi: str):
                           smi)
 
 
-def profile_window(run, video, label: str, smi: str, warm: bool = True):
+def profile_window(run, video, label: str, smi: str, warm: bool = True, ranges: tuple = ()):
     """run(left, right) under torch.profiler, after one more call to warm
-    unless `warm` is False (the shape has just run)."""
+    unless `warm` is False (the shape has just run). `ranges`: names of
+    record_function ranges the caller opened around parts of the window;
+    each one's device time (the kernels launched inside it) is read too."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1607,12 +1628,17 @@ def profile_window(run, video, label: str, smi: str, warm: bool = True):
         run(video[:, 0], video[:, 1])
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    # a range may also come back as a device-side annotation: it is no
+    # kernel, so it is not summed
+    kernels = [e for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.key not in ranges]
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     if device_ms == 0:
         log("profile: the profiler saw no device time; breakdown not measured")
         return None
+    range_ms = {r: max([e.device_time_total for e in averages if e.key == r and e.device_type
+                        != torch.autograd.DeviceType.CUDA] or [0.0]) / 1e3 for r in ranges}
     groups = {name: 0.0 for name, _ in _KERNEL_GROUPS}
     groups["elementwise and other"] = 0.0
     for e in kernels:
@@ -1626,9 +1652,12 @@ def profile_window(run, video, label: str, smi: str, warm: bool = True):
         f"{sum(e.count for e in kernels)} kernel launches ({lookups} of kernel 6), on {smi}")
     for name, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f"  {name}: {ms:.1f} ms ({100 * ms / device_ms:.1f}% of device time)")
+    for name, ms in range_ms.items():
+        log(f"  range {name}: {ms:.1f} ms of device time in its kernels "
+            f"({100 * ms / device_ms:.1f}%)")
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"  top kernel {e.self_device_time_total / 1e3:8.2f} ms x{e.count:5d}  {e.key[:90]}")
-    return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups,
+    return dict(wall_ms=wall_ms, device_ms=device_ms, groups=groups, ranges=range_ms,
                 launches=sum(e.count for e in kernels), lookup_launches=lookups)
 
 
@@ -2009,6 +2038,279 @@ def _head_dim_refused(smi: str) -> None:
         "no play kernel launched")
 
 
+# ------------------------------------------------------------------- zoo
+# the zoo's baselines at their shipped configurations (full width, the
+# shipped dtype and iterations), untrained: no checkpoint of them is in the
+# repository, so their weights are the port's initialisation from ZOO_SEED.
+# (name, iterations, kernel 6 launches a window): DynamicStereo looks up
+# once an iteration of its three stages (10 + 10 + 20), RAFT-Stereo once an
+# iteration for the whole folded window, BiDAStereo correlates by TFCL
+ZOO_MODELS = (("DynamicStereoModel", 20, 40), ("RAFTStereoModel", 32, 32),
+              ("BiDAStereoModel", 10, 0))
+# each model's window size: BiDAStereo's is cut to 256x384 (a crop of the
+# clip), since the phase took 106 s on an H100 with all three at 320x512
+# (BiDAStereo's window 0.93 s, its first call 16.1 s: cuDNN's algorithm
+# search, see utils/device.py::cudnn_autotune), over the 90 s it may take
+ZOO_HW = {"DynamicStereoModel": (HEIGHT, WIDTH), "RAFTStereoModel": (HEIGHT, WIDTH),
+          "BiDAStereoModel": (256, 384)}
+ZOO_SEED = 5
+ZOO_FRAMES = 10  # one strict window of the main clip's frames 5-14
+ZOO_SMALL = (5, 64, 128)  # the small parity's clip: frames, height, width
+# small parity, the card's f32 path against the port's CPU path: the same
+# operations in f32 on two devices (no TF32) part by rounding only, through
+# 20-32 recurrent iterations of an untrained model. A lookup read one pixel
+# to the right (DynamicStereo, RAFT-Stereo) must fail both limits.
+ZOO_SMALL_MAX_TOL = 1e-3  # px
+ZOO_SMALL_MEAN_TOL = 1e-4  # px
+# profiler ranges opened around BiDAStereo's plain parts: (module or class,
+# attribute, range name); its frozen RAFT, RAFT's 2-D pyramid and lookup
+# inside it, TFCL and the flow warps
+ZOO_RANGES = (("bidastereo", "BiDAStereo.compute_flows", "zoo raft"),
+              ("raft", "build_corr_pyramid_2d", "zoo raft 2-D pyramid"),
+              ("raft", "corr_lookup_2d", "zoo raft 2-D lookup"),
+              ("bidastereo", "tfcl_correlation", "zoo tfcl"),
+              ("bidastereo", "flow_warp", "zoo flow warp"))
+# the `real` evaluation preset (ppmstereo_tpu_torch/configs/eval_real.yaml:
+# DynamicStereoModel, 40 frames, window 20, 20 iterations, bf16) at
+# 720x1280 on a Dynamic Replica-layout real/<sequence> tree
+REAL_PRESET = REPO / "ppmstereo_tpu_torch" / "configs" / "eval_real.yaml"
+REAL_SEQUENCE = "teddy_static"
+
+
+def _shifted_lookup(pyramid, x, radius, out_dtype):
+    """The fault of the zoo's small parity: kernel 6 read one pixel to the
+    right."""
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+
+    return kl.corr_lookup_kernel(pyramid, x + 1.0, radius, out_dtype=out_dtype)
+
+
+def _plain_lookup(pyramid, x, radius, out_dtype):
+    from ppmstereo_tpu_torch.ops.corr import corr_lookup
+
+    return corr_lookup(pyramid, x, radius).to(out_dtype)
+
+
+@contextmanager
+def _patched(module, name: str, fn):
+    saved = getattr(module, name)
+    setattr(module, name, fn)
+    try:
+        yield
+    finally:
+        setattr(module, name, saved)
+
+
+@contextmanager
+def _zoo_ranges():
+    """record_function ranges around ZOO_RANGES' functions, for the profile."""
+    import torch
+
+    from ppmstereo_tpu_torch.models import bidastereo, raft
+
+    modules = {"bidastereo": bidastereo, "raft": raft}
+    saved = []
+    for mod_name, path, label in ZOO_RANGES:
+        *owners, attr = path.split(".")
+        owner = modules[mod_name]
+        for name in owners:
+            owner = getattr(owner, name)
+        fn = getattr(owner, attr)
+
+        def ranged(*args, _fn=fn, _label=label, **kwargs):
+            with torch.profiler.record_function(_label):
+                return _fn(*args, **kwargs)
+
+        saved.append((owner, attr, fn))
+        setattr(owner, attr, ranged)
+    try:
+        yield tuple(label for _, _, label in ZOO_RANGES)
+    finally:
+        for owner, attr, fn in saved:
+            setattr(owner, attr, fn)
+
+
+def _zoo_small_parity(name: str, iters: int, lookup_module, smi: str) -> dict:
+    """The model at its shipped iterations in f32 on a small clip: the
+    card against the port's CPU path, and (with `lookup_module`) the card
+    with kernel 6 read one pixel to the right."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+
+    torch.set_num_threads(8)
+    video, _ = synthetic_clip(*ZOO_SMALL, seed=2)
+    left, right = torch.from_numpy(video[:, 0]), torch.from_numpy(video[:, 1])
+    outs = {}
+    for run, dev in (("cpu", "cpu"), ("cuda", "cuda")):
+        pred = model_zoo(name, kernel_size=WINDOW, iters=iters, seed=ZOO_SEED, device=dev,
+                         mixed_precision=False)
+        outs[run] = pred.predictor._run_window(left.to(dev), right.to(dev))[0].cpu().numpy()
+        if run == "cuda" and lookup_module is not None:
+            with _patched(lookup_module, "corr_lookup_kernel", _shifted_lookup):
+                outs["fault"] = pred.predictor._run_window(left.cuda(), right.cuda())[0]
+            outs["fault"] = outs["fault"].cpu().numpy()
+        del pred
+    diff = np.abs(outs["cuda"] - outs["cpu"])
+    scale = float(np.abs(outs["cpu"]).mean())
+    res = dict(max_abs=float(diff.max()), mean_abs=float(diff.mean()), mean_abs_disp=scale)
+    msg = (f"zoo {name} small clip {ZOO_SMALL}, f32, {iters} iterations, on {smi}: cuda vs "
+           f"cpu max |disparity diff| {res['max_abs']:.3e} px (limit {ZOO_SMALL_MAX_TOL}), "
+           f"mean {res['mean_abs']:.3e} px (limit {ZOO_SMALL_MEAN_TOL}); mean |disparity| "
+           f"{scale:.4f} px")
+    if "fault" in outs:
+        fd = np.abs(outs["fault"] - outs["cpu"])
+        res.update(fault_max_abs=float(fd.max()), fault_mean_abs=float(fd.mean()))
+        msg += (f"; the lookup one pixel to the right reads {res['fault_max_abs']:.3e} / "
+                f"{res['fault_mean_abs']:.3e} px")
+    log(msg)
+    if not np.isfinite(outs["cuda"]).all() or not (
+            res["max_abs"] <= ZOO_SMALL_MAX_TOL and res["mean_abs"] <= ZOO_SMALL_MEAN_TOL):
+        raise RuntimeError(f"zoo {name}: the card's f32 path disagrees with the CPU path on "
+                           "the small clip")
+    if "fault" in outs and not (res["fault_max_abs"] > ZOO_SMALL_MAX_TOL
+                                and res["fault_mean_abs"] > ZOO_SMALL_MEAN_TOL):
+        raise RuntimeError(f"zoo {name}: the small-clip limits do not catch a shifted lookup")
+    return res
+
+
+def phase_zoo(main_run: dict, smi: str):
+    """Each of ZOO_MODELS: the small parity (card f32 against the CPU
+    path); one strict window of ZOO_FRAMES frames at ZOO_HW through
+    `model_zoo` in the shipped dtype, the second of two calls timed and
+    counted (kernel 6's launches required), with its peak memory and a
+    profiled third call; for DynamicStereo and RAFT-Stereo the window again
+    with the plain lookup in kernel 6's place, bit-equal required. Then
+    DynamicStereoModel through run_eval with the `real` preset (phase_real)."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.models import dynamic_stereo, raft_stereo
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+
+    lookup_modules = {"DynamicStereoModel": dynamic_stereo, "RAFTStereoModel": raft_stereo}
+    steady = main_run["window_s"][1:] or main_run["window_s"]
+    ppm_s = sum(steady) / len(steady)
+    runs = {}
+    for name, iters, launches_per_window in ZOO_MODELS:
+        h, w = ZOO_HW[name]
+        clip = torch.from_numpy(main_run["video"][5:5 + ZOO_FRAMES, :, :h, :w]).cuda()
+        lookup_module = lookup_modules.get(name)
+        small = _zoo_small_parity(name, iters, lookup_module, smi)
+        pred = model_zoo(name, kernel_size=WINDOW, iters=iters, seed=ZOO_SEED)
+        dtype = str(pred.model.dtype).removeprefix("torch.")
+        run = pred.predictor._run_window
+        t0 = time.perf_counter()
+        run(clip[:, 0], clip[:, 1])  # the first call: cuDNN's algorithm search, allocations
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        kl.corr_lookup_kernel.launches = 0
+        t0 = time.perf_counter()
+        disp = run(clip[:, 0], clip[:, 1])[0]
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+        launches = kl.corr_lookup_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        disp = disp.float().cpu().numpy()
+        if disp.shape != (ZOO_FRAMES, h, w, 1) or not np.isfinite(disp).all():
+            raise RuntimeError(f"zoo {name}: disparity of shape {disp.shape} or not finite")
+        if launches != launches_per_window:
+            raise RuntimeError(f"zoo {name}: kernel 6 launched {launches} times in a window, "
+                               f"expected {launches_per_window}")
+        mean_disp = float(np.abs(disp).mean())
+        log(f"zoo {name} at {h}x{w}, a strict window of {ZOO_FRAMES} frames, {iters} "
+            f"iterations, {dtype}, seeded weights, on {smi}: {window_s:.3f} s (the first call "
+            f"{first_s:.3f} s; PPMStereo's steady window in phase main {ppm_s:.3f} s), peak "
+            f"{peak_gb:.2f} GB, kernel 6 launches {launches}, mean |disparity| "
+            f"{mean_disp:.4f} px")
+        rec = dict(hw=(h, w), dtype=dtype, iters=iters, window_s=window_s, first_s=first_s,
+                   ppm_window_s=ppm_s, peak_gb=peak_gb, lookup_launches=launches,
+                   mean_abs_disp=mean_disp, small=small)
+        if lookup_module is not None:
+            with _patched(lookup_module, "corr_lookup_kernel", _plain_lookup):
+                kl.corr_lookup_kernel.launches = 0
+                plain = run(clip[:, 0], clip[:, 1])[0].float().cpu().numpy()
+                plain_launches = kl.corr_lookup_kernel.launches
+            rec["plain_lookup_bit_equal"] = bool(np.array_equal(disp, plain))
+            diff = float(np.abs(disp - plain).max())
+            log(f"  the same window with the plain lookup in kernel 6's place: bit-equal "
+                f"{rec['plain_lookup_bit_equal']} (max |diff| {diff:.3e} px), kernel 6 launches "
+                f"{plain_launches}")
+            if plain_launches != 0 or not rec["plain_lookup_bit_equal"]:
+                raise RuntimeError(f"zoo {name}: the window through kernel 6 differs from the "
+                                   f"plain lookup's by up to {diff:.3e} px")
+        with _zoo_ranges() as ranges:
+            rec["profile"] = profile_window(run, clip, f"{ZOO_FRAMES}-frame {name}", smi,
+                                            warm=False,
+                                            ranges=ranges if name == "BiDAStereoModel" else ())
+        runs[name] = rec
+        del pred
+        torch.cuda.empty_cache()
+    runs["real"] = phase_real(smi)
+    return runs
+
+
+def phase_real(smi: str) -> dict:
+    """DynamicStereoModel through the evaluate CLI's run_eval with the port's
+    `real` preset, on a Dynamic Replica-layout `real/<REAL_SEQUENCE>` tree
+    written from a synthetic 720x1280 clip: fps, seconds and kernel 6
+    launches per window, peak memory."""
+    import tempfile
+
+    import torch
+
+    from ppmstereo_tpu_torch.cli import evaluate as cli
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.utils.config import load_yaml
+
+    video, gt = synthetic_clip(EVAL_FRAMES, EVAL_HEIGHT, EVAL_WIDTH, seed=4)
+    with tempfile.TemporaryDirectory() as tmp:
+        write_dynamic_replica_tree(Path(tmp), video, gt, split_name="test",
+                                   subdir=f"real/{REAL_SEQUENCE}")
+        cfg = load_yaml(cli.DefaultConfig, str(REAL_PRESET), overrides=[
+            f"dataset_root={tmp}", f"exp_dir={tmp}/out"])
+        if (cfg.dataset_name, cfg.MODEL.model_name, cfg.sample_len, cfg.MODEL.kernel_size,
+                cfg.MODEL.iters) != ("real", "DynamicStereoModel", EVAL_FRAMES, EVAL_WINDOW,
+                                     EVAL_ITERS):
+            raise RuntimeError(f"the real preset is not DynamicStereo's 40-frame protocol: {cfg}")
+        captured = {}
+        zoo = cli.model_zoo
+
+        def capturing_zoo(*args, **kwargs):
+            pred = zoo(*args, seed=ZOO_SEED, **kwargs)
+            captured["records"] = timed_windows(pred)
+            return pred
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        kl.corr_lookup_kernel.launches = 0
+        with _patched(cli, "model_zoo", capturing_zoo):
+            t0 = time.perf_counter()
+            results = cli.run_eval(cfg)
+            eval_s = time.perf_counter() - t0
+        lookup = kl.corr_lookup_kernel.launches
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if set(results) != {REAL_SEQUENCE}:
+        raise RuntimeError(f"run_eval's real branch evaluated {sorted(results)}")
+    agg = results[REAL_SEQUENCE]["aggregate"]
+    records = captured["records"]
+    frames = window_frames(EVAL_FRAMES, EVAL_WINDOW)  # 20, 20, 20, 10
+    log(f"real preset (DynamicStereoModel, {EVAL_FRAMES} frames at {EVAL_HEIGHT}x{EVAL_WIDTH}, "
+        f"window {EVAL_WINDOW}, {EVAL_ITERS} iterations, bf16, seeded weights) through run_eval "
+        f"on {smi}: {eval_s:.1f} s, fps {agg['fps']:.3f}; seconds per window "
+        f"{[round(r['s'], 3) for r in records]}, kernel 6 launches {lookup} "
+        f"({[r['lookup'] for r in records]}); peak {peak_gb:.2f} GB")
+    want = [2 * (EVAL_ITERS // 2) + EVAL_ITERS] * len(frames)
+    if [r["lookup"] for r in records] != want or [r["frames"] for r in records] != frames:
+        raise RuntimeError(f"real preset windows {[(r['frames'], r['lookup']) for r in records]}"
+                           f", expected {frames} frames, {want[0]} launches each")
+    return dict(fps=agg["fps"], eval_s=eval_s, window_s=[r["s"] for r in records],
+                lookup_launches=lookup, peak_gb=peak_gb)
+
+
 # ------------------------------------------------------------------ eval
 # the Dynamic Replica 40-frame protocol (ppmstereo_tpu_torch/configs/
 # eval_dynamic_replica_40_frames.yaml: 40 frames, window 20, 20 iterations)
@@ -2033,8 +2335,9 @@ EVAL_PLAY_SHAPE = (2 * EVAL_WINDOW, 184 * 320, 5 * 184 * 320)
 EVAL_LOOKUP_SHAPE = (EVAL_WINDOW, 184, 320, 320)
 
 
-def write_dynamic_replica_tree(root: Path, video, disparity, split_name: str = "valid"):
-    """`<root>/dynamic_replica_data/<split_name>`:
+def write_dynamic_replica_tree(root: Path, video, disparity, split_name: str = "valid",
+                               subdir: str = ""):
+    """`<root>/dynamic_replica_data/<subdir>/<split_name>`:
     frame_annotations_<split_name>.jgz, the clip's left and right frames as
     PNGs and the left camera's float16 depth PNGs (depth = depth2disp scale
     / disparity); the right camera's depth entries name the left's files
@@ -2045,7 +2348,7 @@ def write_dynamic_replica_tree(root: Path, video, disparity, split_name: str = "
 
     from ppmstereo_tpu_torch.data.png import write_png
 
-    split = root / "dynamic_replica_data" / split_name
+    split = root / "dynamic_replica_data" / subdir / split_name
     (split / "seq").mkdir(parents=True, exist_ok=True)
     height, width = video.shape[2:4]
     scale = EVAL_FOCAL_NDC * width / 2 * EVAL_BASELINE
@@ -2771,6 +3074,8 @@ def main() -> None:
         modes_run = phase_modes(main_run, smi)
     with phase("config"):
         config_run = phase_config(main_run, smi)
+    with phase("zoo"):
+        zoo_run = phase_zoo(main_run, smi)
     with phase("eval"):
         eval_run = phase_eval(smi)
     with phase("ring"):
@@ -2808,6 +3113,11 @@ def main() -> None:
         record["launches_eval"] = eval_run[key]
         record["launches_config"] = {name: run[key] for name, run in config_run.items()}
         record["at_720p"] = _summary_720p(eval_run["kernels"][kernel])
+    # kernel 6 on the baselines' paths (phase zoo): a 320x512 window of each
+    # model, and DynamicStereo's `real` preset run at 720p
+    records[5]["launches_zoo"] = {name: zoo_run[name]["lookup_launches"]
+                                  for name, _, _ in ZOO_MODELS}
+    records[5]["launches_real"] = zoo_run["real"]["lookup_launches"]
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

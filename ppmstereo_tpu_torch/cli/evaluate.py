@@ -6,13 +6,20 @@ its window modes, sequence evaluation, a JSON dump.
         --config ppmstereo_tpu_torch/configs/eval_dynamic_replica_40_frames.yaml \\
         dataset_root=datasets MODEL.checkpoint=checkpoints/anchor_r5.npz
 
+    python -m ppmstereo_tpu_torch.cli.evaluate \
+        --config ppmstereo_tpu_torch/configs/eval_real.yaml   # DynamicStereoModel
+
 Trailing KEY=VALUE arguments override the config (dotted for MODEL.*).
 Runs on `cuda` unless `--device` names another device; raises without a
-card. MODEL.checkpoint takes the JAX package's flat parameters (.npz) or a
-directory of the port's trainer (its newest step_<n>.pt). MODEL.model_kwargs
-("k=v,k2=v2", values literal-evaluated) reaches the model zoo: the window
-modes (warm_start, warm_iters, encoder_cache) and every field of
-`PPMStereoConfig` (mixed_precision, use_cnet, top_k, corr_radius, ...).
+card. MODEL.model_name is any model of the port's zoo (PPMStereoModel,
+DynamicStereoModel, RAFTStereoModel, BiDAStereoModel). MODEL.checkpoint
+takes the flat parameters (.npz) of that model (the JAX package's, or what
+either package's import_torch CLI wrote) or a directory of the port's
+trainer (its newest step_<n>.pt); without one the model runs from the
+port's seeded initialisation. MODEL.model_kwargs ("k=v,k2=v2", values
+literal-evaluated) reaches the model zoo: the window modes (warm_start,
+warm_iters, encoder_cache: PPMStereoModel only) and every field of the
+model's config (mixed_precision, use_cnet, top_k, corr_radius, ...).
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 """Stereo video datasets (counterpart of ppmstereo_tpu/data/datasets.py):
 the `StereoSequenceDataset` base and `ConcatStereoDataset` (`a + b`), the
 readers (SceneFlow, Sintel's evaluation and training clips, Dynamic
-Replica, Infinigen, KITTI depth), `SyntheticStereoDataset` and the training
-loader `fetch_dataloader` with the reference's mixture.
+Replica, Infinigen, KITTI depth, South Kensington's real captures),
+`SyntheticStereoDataset` and the training loader `fetch_dataloader` with the
+reference's mixture.
 
 Ground-truth conventions are the JAX package's: disparity is stored as
 negative-x flow (np.stack([-disp, 0])); depth ground truth becomes
@@ -15,8 +16,7 @@ Samples are channels-last numpy dicts:
   disp  (T, 1, H, W, 1) float32 (negative-x disparity of the left camera)
   valid (T, 1, H, W)    float32
 
-VKITTI2 and the South Kensington readers are not ported yet (ROADMAP §1
-item 4).
+VKITTI2 is not ported yet (ROADMAP §1 item 4).
 """
 
 from __future__ import annotations
@@ -413,6 +413,71 @@ class InfinigenStereoVideoDataset(StereoSequenceDataset):
                 sample["depth2disp_scale"] = scale
                 self.sample_list.append(sample)
                 self.extra_info.append(osp.basename(scene))
+
+
+def _south_kensington_images(scene: str) -> tuple[list, list]:
+    """A capture's left and right PNG frames: `<scene>/images/{left,right}`,
+    else `<scene>/{left,right}`, else `<scene>/image_{left,right}`."""
+    for pat_l, pat_r in (("images/left/*.png", "images/right/*.png"),
+                         ("left/*.png", "right/*.png"),
+                         ("image_left/*.png", "image_right/*.png")):
+        lefts = sorted(glob(osp.join(scene, pat_l)))
+        if lefts:
+            return lefts, sorted(glob(osp.join(scene, pat_r)))
+    return [], []
+
+
+def _frames_sample(lefts, rights, frames) -> defaultdict:
+    sample = _clip()
+    for idx in frames:
+        sample["image"]["left"].append(lefts[idx])
+        sample["image"]["right"].append(rights[idx])
+    return sample
+
+
+class SouthKensingtonStereoVideoDataset(StereoSequenceDataset):
+    """South Kensington: real ZED captures without ground truth, one scene a
+    directory of `root` (frames as `_south_kensington_images` finds them),
+    in contiguous chunks of sample_len frames (a scene whose left and right
+    frames differ in number is skipped)."""
+
+    def __init__(self, aug_params=None, root="datasets/southkensington", sample_len=-1):
+        super().__init__(aug_params)
+        self.sample_len = sample_len
+        self.split = "test"
+        for scene in sorted(glob(osp.join(root, "*"))):
+            lefts, rights = _south_kensington_images(scene)
+            if not lefts or len(lefts) != len(rights):
+                continue
+            step = sample_len if sample_len > 0 else len(lefts)
+            for ref in range(0, len(lefts), step):
+                self.sample_list.append(
+                    _frames_sample(lefts, rights, range(ref, min(ref + step, len(lefts)))))
+                self.extra_info.append(osp.basename(scene))
+
+
+class SouthKensingtonStereoVideoSubDataset(StereoSequenceDataset):
+    """One named South Kensington capture, `<root>/<dtype>/<subname>`, in
+    chunks of sample_len frames (the whole capture when sample_len is not in
+    (0, length)), at most only_first_n_samples of them; raises when the
+    capture has no stereo frames."""
+
+    def __init__(self, aug_params=None, root="datasets/southkensington", dtype="indoor",
+                 subname="video010", sample_len=-1, only_first_n_samples=-1):
+        super().__init__(aug_params)
+        self.sample_len = sample_len
+        self.split = "test"
+        scene = osp.join(root, dtype, subname)
+        lefts, rights = _south_kensington_images(scene)
+        if not lefts or len(lefts) != len(rights):
+            raise FileNotFoundError(f"no stereo frames under {scene}")
+        n = len(lefts)
+        step = sample_len if 0 < sample_len < n else n
+        for count, ref in enumerate(range(0, n, step), start=1):
+            self.sample_list.append(_frames_sample(lefts, rights, range(ref, min(ref + step, n))))
+            self.extra_info.append(subname)
+            if 0 < only_first_n_samples <= count:
+                break
 
 
 class KITTIDepthDataset(StereoSequenceDataset):

@@ -1,6 +1,7 @@
-"""Motion encoder and the context q/k projector on (B, T, H, W, C)
+"""Motion encoders and the context q/k projector on (B, T, H, W, C)
 (counterpart of ppmstereo_tpu/nn/motion.py::PCBlock, AttentionQK,
-BasicMotionEncoderV2). 2-D convs fold (B, T) into the batch."""
+BasicMotionEncoder, BasicMotionEncoderV2). 2-D convs fold (B, T) into the
+batch."""
 
 from __future__ import annotations
 
@@ -49,6 +50,31 @@ class AttentionQK(nn.Module):
     def forward(self, fmap: torch.Tensor):
         qk = self.to_qk(fmap)
         return qk[..., : self.dim_head], qk[..., self.dim_head:]
+
+
+class BasicMotionEncoder(nn.Module):
+    """corr + flow -> 128-ch motion features (126 + the flow), convs
+    `Conv_0` .. `Conv_4` in the JAX module's order. corr_act: GELU after the
+    first corr conv in the PPM variant, ReLU in DynamicStereo's
+    (ppmstereo_tpu/nn/motion.py:66-69)."""
+
+    def __init__(self, cor_planes: int = 36, corr_act: str = "gelu",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        if corr_act not in ("gelu", "relu"):
+            raise ValueError(f"corr_act {corr_act!r}: gelu or relu")
+        self.corr_act = F.gelu if corr_act == "gelu" else F.relu
+        self.Conv_0 = Conv(cor_planes, 256, (1, 1), padding=(0, 0), dtype=dtype)
+        self.Conv_1 = Conv(256, 192, (3, 3), dtype=dtype)
+        self.Conv_2 = Conv(2, 128, (7, 7), dtype=dtype)
+        self.Conv_3 = Conv(128, 64, (3, 3), dtype=dtype)
+        self.Conv_4 = Conv(192 + 64, 126, (3, 3), dtype=dtype)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        cor = F.relu(self.Conv_1(self.corr_act(self.Conv_0(corr))))
+        flo = F.relu(self.Conv_3(F.relu(self.Conv_2(flow))))
+        out = F.relu(self.Conv_4(torch.cat([cor, flo], dim=-1)))
+        return torch.cat([out, flow], dim=-1)
 
 
 class BasicMotionEncoderV2(nn.Module):

@@ -1,6 +1,7 @@
-"""Sequence update block: the recurrent refinement cell of PPMStereo
-(counterpart of ppmstereo_tpu/nn/update.py::FlowHead, Aggregate,
-SequenceUpdateBlock3D). Tensors are (B, T, H, W, C)."""
+"""Sequence update blocks: the recurrent refinement cells of PPMStereo and
+DynamicStereo (counterpart of ppmstereo_tpu/nn/update.py::FlowHead,
+Aggregate, SequenceUpdateBlock3D, DSSequenceUpdateBlock3D). Tensors are
+(B, T, H, W, C)."""
 
 from __future__ import annotations
 
@@ -10,8 +11,8 @@ import torch.nn.functional as F
 
 from ppmstereo_tpu_torch.nn.attention import SpaceAttnBlock, TimeAttnBlock
 from ppmstereo_tpu_torch.nn.common import Conv
-from ppmstereo_tpu_torch.nn.gru import SKSepConvGRU3D
-from ppmstereo_tpu_torch.nn.motion import BasicMotionEncoderV2
+from ppmstereo_tpu_torch.nn.gru import SepConvGRU3D, SKSepConvGRU3D
+from ppmstereo_tpu_torch.nn.motion import BasicMotionEncoder, BasicMotionEncoderV2
 
 MOTION_DIM = 128  # the motion features (126 + the 2-channel flow) and the value
 GRU_ATTN_DIM = 384  # the update attention's width, fixed as in the JAX package
@@ -99,6 +100,50 @@ class SequenceUpdateBlock3D(nn.Module):
         of the new state: (net, delta_flow, mask). Inference reads the mask
         once after the loop (`get_mask`)."""
         x = torch.cat([inp, motion_features, motion_features_global], dim=-1)
+        if self.with_time_attn:
+            x = self.time_attn(x)
+        if self.with_space_attn:
+            x = self.space_attn(x)
+        net = self.gru(net, x)
+        if compute_mask:
+            return net, self.flow_head(net), self.get_mask(net)
+        return net, self.flow_head(net)
+
+
+class DSSequenceUpdateBlock3D(nn.Module):
+    """DynamicStereo's update cell: BasicMotionEncoder (ReLU after its first
+    corr conv), the plain SepConvGRU3D, the 3x3x3 flow head and the 2-D mask
+    head of the convex upsample by 4 (9 x 4 x 4 channels from a 3x3 conv).
+
+    The GRU reads cat[context (hidden_dim wide), motion (128)]. Before it,
+    the cell attends over time (`"update_time"` in attention_type) and space
+    (`"update_space"`), 256 wide; DynamicStereo names them for its 1/16
+    stage only."""
+
+    def __init__(self, hidden_dim: int = 128, cor_planes: int = 36,
+                 attention_type: str | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d, m = hidden_dim, MOTION_DIM
+        self.encoder = BasicMotionEncoder(cor_planes, "relu", dtype)
+        self.gru = SepConvGRU3D(d, d + m, dtype)
+        self.flow_head = FlowHead(d, dtype)
+        self.mask_conv1 = Conv(d, d + m, (3, 3), dtype=dtype)
+        self.mask_conv2 = Conv(d + m, 9 * 4 * 4, (1, 1), padding=(0, 0), dtype=dtype)
+        at = attention_type or ""
+        self.with_time_attn = "update_time" in at
+        self.with_space_attn = "update_space" in at
+        if self.with_time_attn:
+            self.time_attn = TimeAttnBlock(d + m, 8, dtype)
+        if self.with_space_attn:
+            self.space_attn = SpaceAttnBlock(d + m, 8, dtype)
+
+    def get_mask(self, net: torch.Tensor) -> torch.Tensor:
+        return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)))
+
+    def forward(self, net, inp, corrs, flow, compute_mask: bool = False):
+        """Returns (net, delta_flow), and with `compute_mask` (train mode)
+        also the mask of the new state: (net, delta_flow, mask)."""
+        x = torch.cat([inp, self.encoder(flow, corrs)], dim=-1)
         if self.with_time_attn:
             x = self.time_attn(x)
         if self.with_space_attn:

@@ -1,11 +1,16 @@
-"""All-pairs 1-D (epipolar) correlation volume and its pyramid lookup.
+"""All-pairs 1-D (epipolar) correlation volume and its pyramid lookup, the
+2-D bilinear sampler and BiDAStereo's triple-frame correlation.
 
-Counterpart of ppmstereo_tpu/ops/corr.py for the PPMStereo path. The lookup
+Counterpart of ppmstereo_tpu/ops/corr.py (AAPC, StereoAnyVideo's
+correlation, is not ported yet). The lookup
 is the two-tap gather form (`_lookup_level_gather`) in plain PyTorch, as the
 JAX model leaves its lookup to XLA. It is the plain version of kernel 6,
 `kernels/corr_lookup.py` (the counterpart of the JAX package's Pallas lookup
 kernel), which the model runs in test mode; train mode runs this lookup,
 which autograd differentiates.
+
+`bilinear_sample_2d` and `tfcl_correlation` are XLA code in the JAX
+package, not Pallas kernels, and stay plain PyTorch here.
 
 Tensors are channels-last. fmap: (B, H, W, C). volume: (B, H, W1, W2).
 """
@@ -15,6 +20,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from ppmstereo_tpu_torch.ops.geometry import avg_pool_w
 
@@ -67,3 +73,57 @@ def corr_lookup(pyramid: list[torch.Tensor], coords_x: torch.Tensor,
          for i, corr in enumerate(pyramid)],
         dim=-1,
     )
+
+
+def _shift_slice(x_pad: torch.Tensor, dy: int, dx: int, h: int, w: int) -> torch.Tensor:
+    """The (h, w) window at offset (dy, dx) of a padded (..., H', W', C)."""
+    return x_pad[..., dy: dy + h, dx: dx + w, :]
+
+
+def _edge_pad_hw(x: torch.Tensor, pady: int, padx: int) -> torch.Tensor:
+    """Replicate-pad the (H, W) axes of (B, H, W, C)."""
+    y = F.pad(x.movedim(-1, 1), (padx, padx, pady, pady), mode="replicate")
+    return y.movedim(1, -1)
+
+
+def bilinear_sample_2d(img: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """img (B,H,W,C) sampled at coords (B,H',W',2) in pixels, (x, y) order:
+    bilinear, zero padding, align-corners semantics (the pixel centre i is at
+    coordinate i). Four gathers of the flattened image -> (B,H',W',C), in
+    the image's dtype widened with the f32 weights."""
+    b, h, w, c = img.shape
+    if h * w == 0:  # a pyramid level pooled down to nothing reads only padding
+        return torch.zeros(*coords.shape[:-1], c, dtype=img.dtype, device=img.device)
+    x, y = coords[..., 0], coords[..., 1]
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    fx, fy = (x - x0f)[..., None], (y - y0f)[..., None]
+    x0, y0 = x0f.long(), y0f.long()
+    img_flat = img.reshape(b, h * w, c)
+
+    def tap(ix, iy):
+        valid = (ix >= 0) & (ix < w) & (iy >= 0) & (iy < h)
+        flat = (iy.clamp(0, h - 1) * w + ix.clamp(0, w - 1)).reshape(b, -1, 1)
+        vals = torch.gather(img_flat, 1, flat.expand(-1, -1, c)).reshape(*ix.shape, c)
+        return torch.where(valid[..., None], vals, torch.zeros((), dtype=vals.dtype,
+                                                              device=vals.device))
+
+    return (tap(x0, y0) * (1 - fx) * (1 - fy) + tap(x0 + 1, y0) * fx * (1 - fy)
+            + tap(x0, y0 + 1) * (1 - fx) * fy + tap(x0 + 1, y0 + 1) * fx * fy)
+
+
+def tfcl_correlation(left: torch.Tensor, rights_warped, psize: tuple[int, int] = (1, 9)
+                     ) -> torch.Tensor:
+    """BiDAStereo's triple-frame correlation: left (B,H,W,C) against three
+    right features already warped to it, each product of `left` with the
+    right feature shifted by (dy, dx) over a py x px patch (replicate
+    padding), averaged over channels -> (B,H,W, 3 py px), right-major, then
+    dy, then dx."""
+    h, w = left.shape[-3], left.shape[-2]
+    pady, padx = psize[0] // 2, psize[1] // 2
+    outs = []
+    for right in rights_warped:
+        right_pad = _edge_pad_hw(right, pady, padx)
+        for dy in range(psize[0]):
+            for dx in range(psize[1]):
+                outs.append((left * _shift_slice(right_pad, dy, dx, h, w)).mean(dim=-1))
+    return torch.stack(outs, dim=-1)

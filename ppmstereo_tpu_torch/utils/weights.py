@@ -7,8 +7,10 @@ flax path names, so `params/a/b/<leaf>` is `a.b.<leaf>` with
 
   kernel -> weight   Dense (in, out) -> (out, in); Conv HWIO -> OIHW and
                      DHWIO -> OIDHW
-  scale  -> weight   LayerNorm
-  bias, gamma, beta, time_embed keep their names and layouts.
+  scale  -> weight   LayerNorm, FrozenBatchNorm
+  bias, gamma, beta, time_embed, init_hidden_state, and FrozenBatchNorm's
+  statistics mean and var (buffers of the port) keep their names and
+  layouts.
 
 `state_dict_to_flax` is the inverse: it writes the port's parameters (a
 trained port model, or its gradients) in the flat flax layout, which
@@ -65,7 +67,8 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarra
     """The port's state_dict (or any mapping of its parameter names to
     tensors of the parameters' shapes, such as their gradients) -> flat flax
     parameters {"params/a/b/leaf": f32 array}. A 1-D `weight` is a LayerNorm
-    scale; every other `weight` is a Dense or Conv kernel."""
+    or FrozenBatchNorm scale; every other `weight` is a Dense or Conv
+    kernel."""
     flat = {}
     for name, tensor in state.items():
         *parents, leaf = name.split(".")

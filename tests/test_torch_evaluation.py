@@ -29,7 +29,6 @@ from ppmstereo_tpu_torch.evaluation import evaluator as tev
 from ppmstereo_tpu_torch.evaluation import metrics as tmet
 from ppmstereo_tpu_torch.evaluation import visualization as tvis
 from ppmstereo_tpu_torch.models.zoo import model_zoo
-from ppmstereo_tpu_torch.utils.config import load_yaml
 from ppmstereo_tpu_torch.utils.weights import load_npz
 
 torch.set_num_threads(2)
@@ -258,6 +257,38 @@ def test_evaluate_cli_real_captures(tmp_path, predictor):
         {k: v for k, v in direct["aggregate"].items() if k != "fps"}
 
 
+def test_real_preset_runs_dynamic_stereo(tmp_path):
+    """The port's `real` preset (DynamicStereoModel) through the evaluate
+    CLI on a real/<sequence> tree, at a tiny size in f32: from the seeded
+    initialisation, and with MODEL.checkpoint= a DynamicStereo npz; each
+    equal to the Evaluator on the same predictor (fps apart)."""
+    from ppmstereo_tpu_torch.utils.weights import export_npz
+
+    seq = tmp_path / "dynamic_replica_data" / "real" / "teddy_static"
+    _dr_tree(seq, seed=5, split="test")
+    ds = tds.DynamicReplicaDataset(root=str(seq), split="test", sample_len=4,
+                                   only_first_n_samples=1)
+    small = ["sample_len=4", "MODEL.kernel_size=4", "MODEL.iters=1", "crop=2",
+             "MODEL.model_kwargs=mixed_precision=False"]
+    seeded = model_zoo("DynamicStereoModel", kernel_size=4, iters=1, device="cpu",
+                       mixed_precision=False, seed=3)
+    npz = tmp_path / "ds.npz"
+    export_npz(seeded.model, npz)
+    for name, extra, pred in (
+            ("seeded", [], model_zoo("DynamicStereoModel", kernel_size=4, iters=1,
+                                     device="cpu", mixed_precision=False)),
+            ("checkpoint", [f"MODEL.checkpoint={npz}"], seeded)):
+        out = tmp_path / name
+        results = tcli.main(["--device", "cpu", "--config", str(PRESETS / "eval_real.yaml"),
+                             f"dataset_root={tmp_path}", f"exp_dir={out}", *small, *extra])
+        assert set(results) == {"teddy_static"}
+        dumped = json.load(open(out / "result_real_teddy_static_final.json"))
+        direct = tev.Evaluator(tev.EvalConfig(crop=2)).evaluate_sequence(pred, ds)
+        assert {k: v for k, v in dumped["aggregate"].items() if k != "fps"} == \
+            {k: v for k, v in direct["aggregate"].items() if k != "fps"}
+        assert dumped["aggregate"]["num_sequences"] == 1
+
+
 def test_cli_loads_a_trainer_checkpoint(dr_root, tmp_path):
     """MODEL.checkpoint as a directory of the port's trainer: the newest
     step_<n>.pt's parameters, the same predictions as the anchor's npz."""
@@ -292,9 +323,8 @@ def test_cli_refusals(tmp_path):
                     "--iters", "1", "--model_kwargs", "mixed_precision=False"])
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.2"):
         tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])
-    real = load_yaml(tcli.DefaultConfig, str(PRESETS / "eval_real.yaml"))
-    with pytest.raises(ValueError, match="unknown model 'DynamicStereoModel'"):
-        tcli.run_eval(real, device="cpu")
+    with pytest.raises(ValueError, match="unknown model 'StereoAnyVideoModel'"):
+        tcli.main(["--device", "cpu", "MODEL.model_name=StereoAnyVideoModel"])
     with pytest.raises(AttributeError, match="no field nope"):
         tcli.main(["--device", "cpu", "MODEL.nope=1"])
 

@@ -182,7 +182,8 @@ def test_mode_switches_of_the_predictor(anchor):
     """Which chains a zoo predictor runs: the encoder cache needs
     overlapping windows run one at a time."""
     flat, _ = anchor
-    assert available_models() == ["PPMStereoModel"]
+    assert available_models() == ["BiDAStereoModel", "DynamicStereoModel", "PPMStereoModel",
+                                  "RAFTStereoModel"]
 
     def build(**kw):
         return tmodel_zoo("PPMStereoModel", kernel_size=K, iters=ITERS, params=flat,

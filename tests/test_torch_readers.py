@@ -356,6 +356,41 @@ def test_kitti_depth_matches_jax(tmp_path):
     assert port.sparse and len(port[0]["img"]) == 2
 
 
+def test_south_kensington_matches_jax(tmp_path):
+    """Both South Kensington readers on a tree with the three frame layouts,
+    a scene whose left and right frames differ in number (skipped by the
+    scene reader) and a directory without frames."""
+    root = tmp_path / "southkensington"
+    layouts = {"indoor/video010": ("images/left", "images/right", 5),
+               "indoor/video011": ("left", "right", 3),
+               "outdoor/video020": ("image_left", "image_right", 4),
+               "outdoor/broken": ("left", "right", 2)}
+    for scene, (left, right, n) in layouts.items():
+        for i in range(n):
+            _rgb(str(root / scene / left / f"{i:06d}.png"), seed=i)
+            if scene != "outdoor/broken" or i == 0:
+                _rgb(str(root / scene / right / f"{i:06d}.png"), seed=i + 20)
+    os.makedirs(root / "indoor" / "empty")
+    for scenes in ("indoor", "outdoor"):
+        for sample_len in (2, -1):
+            port = tds.SouthKensingtonStereoVideoDataset(root=str(root / scenes),
+                                                         sample_len=sample_len)
+            ref = jds.SouthKensingtonStereoVideoDataset(root=str(root / scenes),
+                                                        sample_len=sample_len)
+            _assert_samples_equal(port, ref)
+    for subname, dtype in (("video010", "indoor"), ("video020", "outdoor")):
+        for sample_len, first_n in ((2, -1), (2, 2), (-1, -1), (9, 1)):
+            kwargs = dict(root=str(root), dtype=dtype, subname=subname, sample_len=sample_len,
+                          only_first_n_samples=first_n)
+            port = tds.SouthKensingtonStereoVideoSubDataset(**kwargs)
+            _assert_samples_equal(port, jds.SouthKensingtonStereoVideoSubDataset(**kwargs))
+            assert "disp" not in port[0]
+    for subname in ("broken", "empty", "absent"):
+        dtype = "outdoor" if subname == "broken" else "indoor"
+        with pytest.raises(FileNotFoundError):
+            tds.SouthKensingtonStereoVideoSubDataset(root=str(root), dtype=dtype, subname=subname)
+
+
 # ------------------------------------------------------------------ YAML
 PRESETS = sorted((REPO / "ppmstereo_tpu_torch" / "configs").glob("*.yaml"))
 
