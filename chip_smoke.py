@@ -84,6 +84,20 @@ it stopped):
                Replica-layout real/<sequence> tree written from a synthetic
                clip: fps, seconds and kernel 6 launches per window (40),
                peak memory
+  7a'''. vda   the Video-Depth-Anything family at its shipped
+               configurations (ViT-S, untrained): PPMStereoVDAModel (bf16,
+               20 iterations) and StereoAnyVideoModel (f32, 12), one strict
+               window of 10 frames at 320x512 each through `model_zoo`: the
+               first call's seconds, the median of three steady calls, peak
+               memory, kernels 1 and 6 launched 40 times each in every
+               PPMStereo-VDA window and never in StereoAnyVideo's, a profiled
+               call (device busy share, the backbone's and AAPC's shares
+               of device time). PPMStereo-VDA: every kernel call against its plain
+               function (kernel 1 within phase kernels' limits, kernel 6 bit
+               for bit), the window against the plain functions' (a wrong
+               lookup must fail the limit) and bit-equal to its plain-lookup
+               twin. StereoAnyVideo: the card's f32 path against the CPU path
+               on the small clip
   7b. eval     the Dynamic Replica 40-frame protocol at 720x1280 (window 20,
                20 iterations, bf16, the anchor) through the evaluate CLI's
                `run_eval` and the port's preset, on a Dynamic Replica tree
@@ -1221,12 +1235,14 @@ def phase_main(smi: str):
                 pred=pred, video=video, disparity=disp, gt=gt)
 
 
-def _window_with_plain_lookup(pred, video, smi: str) -> dict:
+def _window_with_plain_lookup(pred, video, smi: str,
+                              launches_per_window: int = LAUNCHES_PER_WINDOW) -> dict:
     """One steady window (frames 5-14) through kernel 6, then with the plain
     lookup (ops/corr.py::corr_lookup cast to the model's dtype) patched into
     the model in its place, then through kernel 6 again: the disparities
     must be equal bit for bit (the kernel's bf16 features are the plain
-    lookup's, rounded alike)."""
+    lookup's, rounded alike). Kernel 6 must launch `launches_per_window`
+    times in each kernel run."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import corr_lookup as kl
@@ -1253,7 +1269,8 @@ def _window_with_plain_lookup(pred, video, smi: str) -> dict:
     log(f"one steady window through kernel 6 and with the plain lookup on {smi}: disparity "
         f"bit-equal {equal} (max |diff| {diff:.3e} px); kernel 6 launches {launches}; the "
         f"kernel's run repeated bit-equal {rerun}")
-    if launches != {"kernel": LAUNCHES_PER_WINDOW, "plain": 0, "kernel again": LAUNCHES_PER_WINDOW}:
+    if launches != {"kernel": launches_per_window, "plain": 0,
+                    "kernel again": launches_per_window}:
         raise RuntimeError(f"kernel 6 launches per window {launches}")
     if not equal:
         raise RuntimeError(f"the window's disparity through kernel 6 differs from the plain "
@@ -1891,30 +1908,26 @@ def _play_blends_on(model, seed: int) -> None:
                 p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
 
 
-def phase_config(main_run: dict, smi: str):
-    """Each of CONFIGS at 320x512: one strict window (frames 5-14, window
-    10, 10 iterations, bf16) through `model_zoo` with the kernels (the
-    second of two runs timed and counted: kernels 1 and 6 launched
-    LAUNCHES_PER_WINDOW times each); once more with every kernel call held
-    against its plain function on the same inputs; then with every kernel
-    swapped for its plain function, and that run with a wrong lookup."""
-    import numpy as np
+def _kernel_swaps(calls: list):
+    """The swaps of `models/ppm_stereo.py`'s kernel functions: (checked,
+    plain, fault). `checked` launches each kernel and holds its output
+    against its plain function on the same inputs, appending (kernel, share
+    of the max limit, share of the mean limit, play shape (B.T, Lk, Lq)) to
+    `calls`: kernel 1 with phase kernels' limits, 2^-7 max|out| + 2^-8
+    max|v| and 2^-8 mean|out| (bf16 outputs), kernel 6 bit for bit (share 0,
+    else inf). `plain` runs both plain functions; `fault` is `plain` with a
+    wrong lookup (its fractional weights swapped)."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import corr_lookup as kl
     from ppmstereo_tpu_torch.kernels import play_attention as pa
-    from ppmstereo_tpu_torch.models import ppm_stereo
-    from ppmstereo_tpu_torch.models.zoo import model_zoo
     from ppmstereo_tpu_torch.ops.corr import corr_lookup
 
-    clip = torch.from_numpy(main_run["video"][5:5 + WINDOW]).cuda()
-    gt = main_run["gt"][5:5 + WINDOW]
     plain = {"play_attention": pa.play_attention_plain,
              "corr_lookup_kernel": lambda pyr, x, radius, out_dtype: corr_lookup(
                  pyr, x, radius).to(out_dtype)}
     fault = dict(plain, corr_lookup_kernel=lambda pyr, x, radius, out_dtype: _lookup_fault(
         pyr, x, radius).to(out_dtype))
-    calls = []  # (kernel, share of the max limit, of the mean limit, fault caught)
 
     def checked_play(q, k, v, scale):
         out = pa.play_attention(q, k, v, scale)
@@ -1932,7 +1945,28 @@ def phase_config(main_run: dict, smi: str):
         calls.append(("lookup", 0.0 if equal else float("inf"), 0.0, None))
         return out
 
-    checked = {"play_attention": checked_play, "corr_lookup_kernel": checked_lookup}
+    return {"play_attention": checked_play, "corr_lookup_kernel": checked_lookup}, plain, fault
+
+
+def phase_config(main_run: dict, smi: str):
+    """Each of CONFIGS at 320x512: one strict window (frames 5-14, window
+    10, 10 iterations, bf16) through `model_zoo` with the kernels (the
+    second of two runs timed and counted: kernels 1 and 6 launched
+    LAUNCHES_PER_WINDOW times each); once more with every kernel call held
+    against its plain function on the same inputs; then with every kernel
+    swapped for its plain function, and that run with a wrong lookup."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models import ppm_stereo
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+
+    clip = torch.from_numpy(main_run["video"][5:5 + WINDOW]).cuda()
+    gt = main_run["gt"][5:5 + WINDOW]
+    calls = []  # (kernel, share of the max limit, of the mean limit, play shape)
+    checked, plain, fault = _kernel_swaps(calls)
     runs = {}
     for name, kwargs in CONFIGS:
         pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, seed=CONFIG_SEED,
@@ -2309,6 +2343,188 @@ def phase_real(smi: str) -> dict:
                            f", expected {frames} frames, {want[0]} launches each")
     return dict(fps=agg["fps"], eval_s=eval_s, window_s=[r["s"] for r in records],
                 lookup_launches=lookup, peak_gb=peak_gb)
+
+
+# ------------------------------------------------------------------- vda
+# the Video-Depth-Anything family at its shipped configurations (ViT-S),
+# untrained (the port's seeded initialisation): (model, iterations, launches
+# of kernels 1 and 6 in a window each). PPMStereo-VDA plays and looks up once
+# an iteration of its three stages (10 + 10 + 20); StereoAnyVideo correlates
+# by AAPC (plain PyTorch) and launches neither
+VDA_MODELS = (("PPMStereoVDAModel", 20, 40), ("StereoAnyVideoModel", 12, 0))
+# each model's window: one strict window of the main clip's frames 5-14
+VDA_HW = {"PPMStereoVDAModel": (HEIGHT, WIDTH), "StereoAnyVideoModel": (HEIGHT, WIDTH)}
+VDA_STEADY_CALLS = 3  # a window's steady seconds: the median of these calls
+# profiler ranges: the backbone's forward (DINOv2 and the DPT head), and
+# StereoAnyVideo's AAPC
+VDA_RANGE, AAPC_RANGE = "vda backbone", "vda aapc"
+# PPMStereo-VDA's window through the kernels against the same window through
+# the plain functions, by the mean |difference| relative to the plain run's
+# mean |disparity| (phase config's limit and fault; its comment says why)
+VDA_REL_TOL = CONFIG_REL_TOL
+
+
+@contextmanager
+def _vda_ranges():
+    """record_function ranges around every forward of the VDA backbone
+    (DINOv2 and the DPT head) and every AAPC, for the profile."""
+    import torch
+
+    from ppmstereo_tpu_torch.models import stereoanyvideo
+    from ppmstereo_tpu_torch.nn.vda.video_depth import VideoDepthAnything
+
+    def ranged(fn, label):
+        def call(*args, **kwargs):
+            with torch.profiler.record_function(label):
+                return fn(*args, **kwargs)
+        return call
+
+    with _patched(VideoDepthAnything, "_head", ranged(VideoDepthAnything._head, VDA_RANGE)), \
+            _patched(stereoanyvideo, "aapc_correlation",
+                     ranged(stereoanyvideo.aapc_correlation, AAPC_RANGE)):
+        yield (VDA_RANGE, AAPC_RANGE)
+
+
+def _vda_against_plain(run, clip, disp, launches_per_window: int, smi: str) -> dict:
+    """PPMStereo-VDA's window (`disp`, through the kernels) held to its plain
+    version: once more with every kernel call checked against its plain
+    function on the same inputs (`_kernel_swaps`), then with both kernels
+    swapped for their plain functions, and that run with a wrong lookup."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models import ppm_stereo
+
+    calls = []
+    checked, plain, fault = _kernel_swaps(calls)
+    out = {}
+    for label, swap in (("checked", checked), ("plain", plain), ("fault", fault)):
+        saved = {k: getattr(ppm_stereo, k) for k in swap}
+        try:
+            for k, fn in swap.items():
+                setattr(ppm_stereo, k, fn)
+            pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+            d = run(clip[:, 0], clip[:, 1])[0].float().cpu().numpy()
+        finally:
+            for k, fn in saved.items():
+                setattr(ppm_stereo, k, fn)
+        out[label] = (d, pa.play_attention.launches, kl.corr_lookup_kernel.launches)
+    plays = [c for c in calls if c[0] == "play"]
+    lookups = [c for c in calls if c[0] == "lookup"]
+    worst = (max(c[1] for c in plays), max(c[2] for c in plays))
+    lookups_equal = all(c[1] == 0.0 for c in lookups)
+    p_disp = out["plain"][0]
+    scale = float(np.abs(p_disp).mean())
+    diff = np.abs(disp - p_disp)
+    rel = float(diff.mean()) / scale
+    fault_rel = float(np.abs(out["fault"][0] - p_disp).mean()) / scale
+    res = dict(play_calls=len(plays), play_calls_worst_share=worst,
+               lookup_calls=len(lookups), lookup_calls_bit_equal=lookups_equal,
+               max_abs_diff=float(diff.max()), mean_abs_diff=float(diff.mean()),
+               mean_abs_disp=scale, rel_diff=rel, fault_rel_diff=fault_rel,
+               plain_launches=out["plain"][1:])
+    log(f"  against its plain version on {smi}: {len(plays)} kernel 1 calls at worst "
+        f"{worst[0]:.2f} / {worst[1]:.2f} of the max / mean limits, {len(lookups)} kernel 6 "
+        f"calls bit-equal {lookups_equal}; the window through the plain functions: max |diff| "
+        f"{diff.max():.3e} px, mean {diff.mean():.3e} px = {rel:.2e} of the mean |disparity| "
+        f"{scale:.4f} px (limit {VDA_REL_TOL}); a wrong lookup: {fault_rel:.2e}")
+    if (len(plays), len(lookups)) != (launches_per_window,) * 2 or not (
+            worst[0] <= 1 and worst[1] <= 1 and lookups_equal):
+        raise RuntimeError(f"PPMStereo-VDA: kernel 1 at worst {worst} of its limits over "
+                           f"{len(plays)} calls, kernel 6 bit-equal {lookups_equal} over "
+                           f"{len(lookups)}")
+    if out["plain"][1:] != (0, 0) or not rel <= VDA_REL_TOL:
+        raise RuntimeError(f"PPMStereo-VDA: the kernels' window differs from the plain "
+                           f"functions' by {rel:.2e} of the mean |disparity| (plain run's "
+                           f"launches {out['plain'][1:]})")
+    if not fault_rel > VDA_REL_TOL:
+        raise RuntimeError(f"PPMStereo-VDA: a wrong lookup moves the window by {fault_rel:.2e} "
+                           "of the mean |disparity| only; the limit cannot catch it")
+    return res
+
+
+def phase_vda(main_run: dict, smi: str):
+    """Each of VDA_MODELS through `model_zoo` at its shipped dtype and
+    iterations: one strict window of the main clip's frames 5-14 at VDA_HW,
+    the first call timed apart, then VDA_STEADY_CALLS calls (median seconds,
+    peak memory, kernels 1 and 6 launched as VDA_MODELS says in each) and a
+    profiled call (device busy share, the backbone's and AAPC's shares of
+    device time). PPMStereo-VDA (its play blends set to 1, so that the play reaches the
+    output) is held to its plain version (`_vda_against_plain`) and to its
+    plain-lookup twin bit for bit; StereoAnyVideo's card f32 path to the
+    CPU path on the small clip (`_zoo_small_parity`)."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+
+    runs = {}
+    for name, iters, launches_per_window in VDA_MODELS:
+        h, w = VDA_HW[name]
+        clip = torch.from_numpy(main_run["video"][5:5 + ZOO_FRAMES, :, :h, :w]).cuda()
+        rec = {}
+        if name == "StereoAnyVideoModel":
+            rec["small"] = _zoo_small_parity(name, iters, None, smi)
+        pred = model_zoo(name, kernel_size=WINDOW, iters=iters, seed=ZOO_SEED)
+        if name == "PPMStereoVDAModel":
+            _play_blends_on(pred.model, ZOO_SEED)
+        dtype = str(pred.model.dtype).removeprefix("torch.")
+        run = pred.predictor._run_window
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(clip[:, 0], clip[:, 1])  # cuDNN's algorithm search (f32), allocations
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        steady, counts = [], []
+        for _ in range(VDA_STEADY_CALLS):
+            pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+            t0 = time.perf_counter()
+            disp = run(clip[:, 0], clip[:, 1])[0]
+            torch.cuda.synchronize()
+            steady.append(time.perf_counter() - t0)
+            counts.append((pa.play_attention.launches, kl.corr_lookup_kernel.launches))
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        disp = disp.float().cpu().numpy()
+        if disp.shape != (ZOO_FRAMES, h, w, 1) or not np.isfinite(disp).all():
+            raise RuntimeError(f"vda {name}: disparity of shape {disp.shape} or not finite")
+        if any(c != (launches_per_window,) * 2 for c in counts):
+            raise RuntimeError(f"vda {name}: kernels 1 and 6 launched {counts} times in its "
+                               f"windows, expected {launches_per_window} each")
+        window_s = float(np.median(steady))
+        with _vda_ranges() as ranges:
+            prof = profile_window(run, clip, f"{ZOO_FRAMES}-frame {name}", smi, warm=False,
+                                  ranges=ranges)
+        busy = backbone = aapc = None
+        if prof is not None:
+            busy = prof["device_ms"] / prof["wall_ms"]
+            backbone = prof["ranges"][VDA_RANGE] / prof["device_ms"]
+            aapc = prof["ranges"][AAPC_RANGE] / prof["device_ms"]
+        rec.update(hw=(h, w), dtype=dtype, iters=iters, first_s=first_s, steady_s=steady,
+                   window_s=window_s, peak_gb=peak_gb, play_launches=counts[0][0],
+                   lookup_launches=counts[0][1], busy_share=busy, backbone_share=backbone,
+                   aapc_share=aapc, mean_abs_disp=float(np.abs(disp).mean()), profile=prof)
+
+        def share(x):
+            return "not measured" if x is None else f"{100 * x:.1f}%"
+
+        log(f"vda {name} at {h}x{w}, a strict window of {ZOO_FRAMES} frames, {iters} "
+            f"iterations, {dtype}, seeded weights, on {smi}: the first call {first_s:.3f} s, "
+            f"then {[round(x, 3) for x in steady]} s (median {window_s:.3f} s), peak "
+            f"{peak_gb:.2f} GB, kernel 1 and 6 launches a window {counts[0]}, device busy "
+            f"{share(busy)}, of device time the backbone {share(backbone)} and AAPC "
+            f"{share(aapc)}, mean |disparity| {rec['mean_abs_disp']:.4f} px")
+        if name == "PPMStereoVDAModel":
+            rec["against_plain"] = _vda_against_plain(run, clip, disp, launches_per_window, smi)
+            rec["plain_lookup"] = _window_with_plain_lookup(
+                pred, main_run["video"][:, :, :h, :w], smi, launches_per_window)
+        runs[name] = rec
+        del pred
+        torch.cuda.empty_cache()
+    return runs
 
 
 # ------------------------------------------------------------------ eval
@@ -3076,6 +3292,8 @@ def main() -> None:
         config_run = phase_config(main_run, smi)
     with phase("zoo"):
         zoo_run = phase_zoo(main_run, smi)
+    with phase("vda"):
+        vda_run = phase_vda(main_run, smi)
     with phase("eval"):
         eval_run = phase_eval(smi)
     with phase("ring"):
@@ -3084,15 +3302,19 @@ def main() -> None:
         train_run = phase_train(smi)
         train_run["recipe"] = phase_train_recipe(smi)
 
-    # launches: kernel 1 on the inference path's run, kernels 2-4 on the
-    # training path's run, kernel 5 on the ring path's run (rank 0); kernel
-    # 6 on the inference path's and the ring path's runs (rank 0; test
-    # mode), summed with the training path's (0: train mode runs the plain
-    # lookup). Each path is driven with its counts set to 0 just before.
-    # Kernels 1 and 6 in the modes and eval paths' runs sit beside them.
-    lookup = (main_run["lookup_launches"] + ring_run["lookup_launches"]
+    # launches: kernel 1 on the inference path's run and the VDA family's
+    # window (PPMStereo-VDA's; StereoAnyVideo launches none), kernels 2-4 on
+    # the training path's run, kernel 5 on the ring path's run (rank 0);
+    # kernel 6 on the inference path's, the VDA family's and the ring path's
+    # runs (rank 0; test mode), summed with the training path's (0: train
+    # mode runs the plain lookup). Each path is driven with its counts set
+    # to 0 just before. Kernels 1 and 6 in the modes and eval paths' runs
+    # sit beside them.
+    vda_play = sum(run["play_launches"] for run in vda_run.values())
+    vda_lookup = sum(run["lookup_launches"] for run in vda_run.values())
+    lookup = (main_run["lookup_launches"] + vda_lookup + ring_run["lookup_launches"]
               + train_run["launches"]["corr_lookup"])
-    launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"],
+    launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"] + vda_play,
                     play_attention_carry=ring_run["launches"], corr_lookup=lookup)
     records = [kernel_record(key, name, source, replaces, rows[key], launches[name])
                for key, name, source, replaces in _KERNEL_RECORDS]
@@ -3118,6 +3340,9 @@ def main() -> None:
     records[5]["launches_zoo"] = {name: zoo_run[name]["lookup_launches"]
                                   for name, _, _ in ZOO_MODELS}
     records[5]["launches_real"] = zoo_run["real"]["lookup_launches"]
+    # kernels 1 and 6 in a 320x512 window of each VDA model (phase vda)
+    for record, key in ((records[0], "play_launches"), (records[5], "lookup_launches")):
+        record["launches_vda"] = {name: run[key] for name, run in vda_run.items()}
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

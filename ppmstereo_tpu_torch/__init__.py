@@ -7,10 +7,12 @@ The JAX package stays the reference; this package imports nothing of it
   ops/      plain tensor functions (geometry, padding, upsampling, correlation)
   kernels/  hand-written CUDA kernels, their plain PyTorch versions, the nvcc build
   csrc/     the kernels' CUDA C++ sources
-  nn/       building blocks as nn.Modules (encoders, attention, GRU, heads)
-  models/   the PPMStereo graph, the baselines (DynamicStereo, RAFT-Stereo,
-            BiDAStereo with its RAFT), the sliding-window predictor and its
-            window modes, the zoo
+  nn/       building blocks as nn.Modules (encoders, attention, GRU, heads;
+            vda/: the Video-Depth-Anything backbone)
+  models/   the PPMStereo graph (with and without the VDA backbone), the
+            baselines (DynamicStereo, RAFT-Stereo, BiDAStereo with its RAFT,
+            StereoAnyVideo), the sliding-window predictor and its window
+            modes, the zoo
   data/     file formats (with a PNG codec), the evaluation readers, the
             synthetic training set, the augmentor, the batch loader
   evaluation/  EPE/TEPE metrics, the sequence evaluator, visualisations

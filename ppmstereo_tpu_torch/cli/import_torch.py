@@ -15,9 +15,14 @@ format: a compressed npz of float16 arrays named by flax path
 evaluate CLI takes it; the port's carry transposes each tensor once more,
 into its own layout. The conversion runs on the host: no device is used.
 
-Models: PPMStereoModel, DynamicStereoModel and BiDAStereoModel (with its
-RAFT when the checkpoint holds `raft.model.*`). PPMStereoVDAModel and
-StereoAnyVideoModel raise until they are ported (ROADMAP §1).
+Models: PPMStereoModel, PPMStereoVDAModel, DynamicStereoModel,
+BiDAStereoModel (with its RAFT when the checkpoint holds `raft.model.*`) and
+StereoAnyVideoModel (with its Video-Depth-Anything backbone when the
+checkpoint holds `depthnet.depthanything.*`). The DPT head's transposed
+convolutions take `vda_transform` (the JAX CLI converts them as Conv2d
+weights, swapping their in and out channels and leaving them unflipped);
+the backbone's tensors that no model reads (`mask_token`, the scalar depth
+head `output_conv2`, ...) are not counted as unmapped.
 
 The exit code is 1 when a mapped key is missing from the checkpoint or a
 live tensor of the checkpoint has no destination (`--allow_partial`: 0),
@@ -37,15 +42,15 @@ from ppmstereo_tpu_torch.models.ppm_stereo import SHIPPED_ATTENTION
 
 MODELS = ("PPMStereoModel", "PPMStereoVDAModel", "DynamicStereoModel", "BiDAStereoModel",
           "StereoAnyVideoModel")
-NOT_PORTED = ("PPMStereoVDAModel", "StereoAnyVideoModel")
 
 
 def _template(model) -> dict[str, np.ndarray]:
     """The model's parameters in the flat flax layout, without the "params/"
     prefix: the shapes (and the values of anything no table names)."""
-    from ppmstereo_tpu_torch.utils.weights import state_dict_to_flax
+    from ppmstereo_tpu_torch.utils.weights import state_dict_to_flax, transposed_kernels
 
-    return {k.removeprefix("params/"): v for k, v in state_dict_to_flax(model.state_dict()).items()}
+    flat = state_dict_to_flax(model.state_dict(), transposed_kernels(model))
+    return {k.removeprefix("params/"): v for k, v in flat.items()}
 
 
 def _num_frames(args, sd) -> int:
@@ -66,16 +71,22 @@ def build_and_map(args, sd: dict) -> tuple[dict[str, np.ndarray], list[str], lis
         ppmstereo_mapping,
     )
     from ppmstereo_tpu_torch.utils.torch_import import import_by_mapping
+    from ppmstereo_tpu_torch.utils.vda_mapping import (
+        is_transposed_conv_key,
+        is_vda_dead_key,
+        vda_transform,
+    )
     from ppmstereo_tpu_torch.utils.zoo_mappings import (
         bidastereo_mapping,
         dynamicstereo_mapping,
         is_zoo_dead_key,
+        ppmstereo_vda_mapping,
+        stereoanyvideo_mapping,
     )
 
-    if args.model in NOT_PORTED:
-        raise NotImplementedError(
-            f"--model {args.model}: not ported yet (ROADMAP §1 item 8, the StereoAnyVideo and "
-            "PPMStereo-VDA slice); ppmstereo_tpu.cli.import_torch converts it")
+    def vda_dead(key, mapping):
+        return is_zoo_dead_key(key, mapping) or is_vda_dead_key(key, mapping)
+
     if args.model == "PPMStereoModel":
         from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 
@@ -84,6 +95,24 @@ def build_and_map(args, sd: dict) -> tuple[dict[str, np.ndarray], list[str], lis
         model = PPMStereo(cfg, iters=2, test_mode=True)
         mapping = ppmstereo_mapping(attention_type=args.attention_type, use_cnet=not args.no_cnet)
         dead = is_dead_reference_key
+    elif args.model == "PPMStereoVDAModel":
+        from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
+
+        cfg = PPMStereoConfig(mixed_precision=False, use_cnet=True, use_vfm=True,
+                              attention_type=args.attention_type, num_frames=_num_frames(args, sd))
+        model = PPMStereo(cfg, iters=2, test_mode=True)
+        mapping, dead = ppmstereo_vda_mapping(attention_type=args.attention_type), vda_dead
+    elif args.model == "StereoAnyVideoModel":
+        from ppmstereo_tpu_torch.models.stereoanyvideo import StereoAnyVideo, StereoAnyVideoConfig
+
+        model = StereoAnyVideo(StereoAnyVideoConfig(mixed_precision=False), iters=2,
+                               test_mode=True)
+        # the backbone's tensors are `depthnet.depthanything.*` (the JAX CLI
+        # looks for "backbone.*", which this table never names, and so leaves
+        # them out)
+        mapping = stereoanyvideo_mapping(
+            include_vda=any(k.startswith("depthnet.depthanything.") for k in sd))
+        dead = vda_dead
     elif args.model == "DynamicStereoModel":
         from ppmstereo_tpu_torch.models.dynamic_stereo import DynamicStereo, DynamicStereoConfig
 
@@ -99,7 +128,11 @@ def build_and_map(args, sd: dict) -> tuple[dict[str, np.ndarray], list[str], lis
         # names, and so leaves them unmapped)
         mapping = bidastereo_mapping(include_raft=any(k.startswith("raft.model.") for k in sd))
         dead = is_zoo_dead_key
-    flat, missing = import_by_mapping(sd, _template(model), mapping, transform=grn_transform)
+
+    def transform(key, w):
+        return vda_transform(key, w) if is_transposed_conv_key(key) else grn_transform(key, w)
+
+    flat, missing = import_by_mapping(sd, _template(model), mapping, transform=transform)
     unmapped = sorted(k for k in set(sd) - set(mapping) if not dead(k, mapping))
     return flat, missing, unmapped
 
@@ -112,7 +145,8 @@ def main(argv=None) -> int:
     p.add_argument("out", help="output .npz path")
     p.add_argument("--model", default="PPMStereoModel", choices=MODELS)
     p.add_argument("--attention_type", default=SHIPPED_ATTENTION,
-                   help="the architecture switch the checkpoint was trained with (PPMStereo)")
+                   help="the architecture switch the checkpoint was trained with (PPMStereo "
+                        "and PPMStereo-VDA)")
     p.add_argument("--no_cnet", action="store_true",
                    help="a PPMStereo checkpoint trained without the ConvNeXt context net")
     p.add_argument("--num_frames", type=int, default=None,

@@ -31,7 +31,12 @@ divisibility rule; the rest of the window is not sharded here.
 
 The architecture comes from `PPMStereoConfig`, the port's copy of the JAX
 package's dataclass with its defaults (the shipped configuration); its
-`__post_init__` refuses what the port does not run.
+`__post_init__` refuses what the port does not run. With `use_vfm`
+(PPMStereo-VDA) the features come from a frozen Video-Depth-Anything
+backbone's fusion pyramid fused by `MultiLevelEncoderVFM`, whose 1/16 and
+1/8 maps feed those stages directly; such a model has no per-frame
+encoders, so `encode_frames` and `forward(feats=)` raise, as in the JAX
+package.
 
 Tensors are (B, T, H, W, C) at the public boundary; images are in [0, 255].
 The bf16 policy follows the JAX modules' `dtype=`: each layer computes in
@@ -55,10 +60,16 @@ from ppmstereo_tpu_torch.kernels.corr_lookup import corr_lookup_kernel
 from ppmstereo_tpu_torch.kernels.play_attention import HEAD_DIM, play_attention, play_scale
 from ppmstereo_tpu_torch.nn.attention import temporal_positional_encoding
 from ppmstereo_tpu_torch.nn.convnext import ContextNet
-from ppmstereo_tpu_torch.nn.encoder import BasicEncoder
+from ppmstereo_tpu_torch.nn.encoder import BasicEncoder, MultiLevelEncoderVFM
 from ppmstereo_tpu_torch.nn.motion import AttentionQK
 from ppmstereo_tpu_torch.nn.sst import SSTBlock
 from ppmstereo_tpu_torch.nn.update import MOTION_DIM, SequenceUpdateBlock3D
+from ppmstereo_tpu_torch.nn.vda.video_depth import (
+    _MODEL_CONFIGS,
+    VideoDepthAnything,
+    imagenet_normalize,
+    interp_ac_false_to,
+)
 from ppmstereo_tpu_torch.ops.corr import build_corr_pyramid, corr_lookup
 from ppmstereo_tpu_torch.ops.geometry import (
     adaptive_max_pool2d,
@@ -99,13 +110,16 @@ class PPMStereoConfig:
     the CPU's route anyway; on a card, where kernel 1 has no bypass, it
     raises.
 
+    use_vfm: PPMStereo-VDA's feature path (the frozen Video-Depth-Anything
+    backbone `vfm_encoder`, "vits" or "vitl", and MultiLevelEncoderVFM).
+
     Refused when the config is built: different_update_blocks=False (as in
-    the JAX package), use_vfm and another vfm_encoder (ROADMAP §1 item 8), a
-    radius or level count beyond kernel 6's, a context_dim other than the
-    play kernels' head dim 128 (the play's value is the 128-wide
-    `aggregator` projection, so the JAX model fails at its reshape
-    likewise), and an update attention whose input (dim - hidden_dim + 256)
-    is not its 384 channels."""
+    the JAX package), a vfm_encoder Video-Depth-Anything has no
+    configuration for, a radius or level count beyond kernel 6's, a
+    context_dim other than the play kernels' head dim 128 (the play's value
+    is the 128-wide `aggregator` projection, so the JAX model fails at its
+    reshape likewise), and an update attention whose input (dim -
+    hidden_dim + 256) is not its 384 channels."""
 
     hidden_dim: int = 128
     context_dim: int = 128
@@ -132,9 +146,9 @@ class PPMStereoConfig:
             raise NotImplementedError(
                 "shared update blocks across scales are not supported; the shipped "
                 "reference config uses different_update_blocks=True")
-        if self.use_vfm or self.vfm_encoder != "vits":
-            raise NotImplementedError(
-                "use_vfm / vfm_encoder (PPMStereo_VDA) are not ported yet: ROADMAP §1 item 8")
+        if self.vfm_encoder not in _MODEL_CONFIGS:
+            raise ValueError(f"vfm_encoder {self.vfm_encoder!r}: Video-Depth-Anything has "
+                             f"{sorted(_MODEL_CONFIGS)}")
         lk = _lookup_kernel
         if not (1 <= self.corr_radius <= lk.MAX_RADIUS and 1 <= self.corr_levels <= lk.MAX_LEVELS):
             raise ValueError(
@@ -376,7 +390,12 @@ class PPMStereo(nn.Module):
         self.cfg = cfg
         self.test_mode = test_mode
         self.dtype = dtype = cfg.dtype
-        self.fnet = BasicEncoder(cfg.dim, dtype)
+        if cfg.use_vfm:
+            self.fnet = MultiLevelEncoderVFM(
+                cfg.dim, _MODEL_CONFIGS[cfg.vfm_encoder]["features"], dtype)
+            self.backbone = VideoDepthAnything(cfg.vfm_encoder, dtype=dtype)
+        else:
+            self.fnet = BasicEncoder(cfg.dim, dtype)
         if cfg.use_cnet:
             self.cnet = ContextNet(cfg.dim, dtype)
         for i in range(3):
@@ -421,7 +440,10 @@ class PPMStereo(nn.Module):
     def encode_frames(self, image1, image2, frames_per_call: int | None = None):
         """Per-frame features: fmap1, fmap2 (fnet) and, with the context
         net, cnet4/8/16; the encoders run on `frames_per_call` frames a call
-        (default: all at once), joined along time."""
+        (default: all at once), joined along time. Not for use_vfm: its
+        backbone attends over the window's frames."""
+        if self.cfg.use_vfm:
+            raise ValueError("encode_frames does not support use_vfm")
         t = image1.shape[1]
         n = frames_per_call or t
         parts = [self._encode(image1[:, s:s + n], image2[:, s:s + n]) for s in range(0, t, n)]
@@ -438,6 +460,32 @@ class PPMStereo(nn.Module):
         if self.cfg.use_cnet:
             feats.update(zip(("cnet4", "cnet8", "cnet16"), self.cnet(image1)))
         return feats
+
+    def _vfm_features(self, image1, image2):
+        """PPMStereo-VDA's features: the frozen backbone's fusion pyramid of
+        both views (ImageNet-normalised, resized to multiples of 14), each
+        map resized to 1/4 ... 1/32 of the image and fused with the frames by
+        MultiLevelEncoderVFM. Returns (the features dict of `encode_frames`'
+        keys, {"f16": (left, right), "f8": (left, right)})."""
+        b, t, h, w, _ = image1.shape
+        both_raw = torch.cat([image1, image2], dim=0)
+        vda_in = interp_ac_false_to(imagenet_normalize(both_raw).to(self.dtype),
+                                    ((h // 14) * 14, (w // 14) * 14))
+        with torch.no_grad():
+            paths = self.backbone.fusion_features(vda_in)
+        vfm = [interp_ac_false_to(p.reshape(2 * b * t, *p.shape[2:]), (h // s, w // s))
+               for p, s in zip(paths, (4, 8, 16, 32))]
+        both = (2.0 * (both_raw / 255.0) - 1.0).to(self.dtype)
+        f4, f8, f16 = self.fnet(both.reshape(2 * b * t, h, w, 3), vfm)
+
+        def split(x):
+            x = x.reshape(2 * b, t, *x.shape[1:])
+            return x[:b], x[b:]
+
+        feats = dict(zip(("fmap1", "fmap2"), split(f4)))
+        if self.cfg.use_cnet:
+            feats.update(zip(("cnet4", "cnet8", "cnet16"), self.cnet(both[:b])))
+        return feats, {"f16": split(f16), "f8": split(f8)}
 
     def _context(self, feat, cnet_feat):
         """(net, inp): the features (averaged with the cnet features when
@@ -472,7 +520,12 @@ class PPMStereo(nn.Module):
         stage by stage."""
         if warm_iters is not None and flow_init is None:
             raise ValueError("warm_iters applies to a warm start: pass flow_init")
-        if feats is None:
+        vfm = None
+        if self.cfg.use_vfm:
+            if feats is not None:
+                raise ValueError("feats= does not support use_vfm")
+            feats, vfm = self._vfm_features(image1, image2)
+        elif feats is None:
             feats = self.encode_frames(image1, image2)
         fmap1, fmap2 = feats["fmap1"], feats["fmap2"]
         b, t, h4, w4, _ = fmap1.shape
@@ -492,11 +545,17 @@ class PPMStereo(nn.Module):
                 return p4, u4
             return flow_up4[..., :1], interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
 
-        f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
+        if vfm is None:
+            f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
+        else:
+            f1_16, f2_16 = self.sst(*vfm["f16"])
         net16, inp16 = self._context(f1_16, feats.get("cnet16"))
         h8, w8 = h4 // 2, w4 // 2
-        f1_8 = (avg_pool2d(fmap1, 2) + interp_bilinear(f1_16, (h8, w8))) / 2.0
-        f2_8 = (avg_pool2d(fmap2, 2) + interp_bilinear(f2_16, (h8, w8))) / 2.0
+        if vfm is None:
+            f1_8 = (avg_pool2d(fmap1, 2) + interp_bilinear(f1_16, (h8, w8))) / 2.0
+            f2_8 = (avg_pool2d(fmap2, 2) + interp_bilinear(f2_16, (h8, w8))) / 2.0
+        else:
+            f1_8, f2_8 = vfm["f8"]
         net8, inp8 = self._context(f1_8, feats.get("cnet8"))
 
         # stage 1/16

@@ -1,7 +1,7 @@
 """Model registry and inference wrapper (counterpart of
-ppmstereo_tpu/models/zoo.py). Registered: PPMStereoModel and the baselines
-DynamicStereoModel, RAFTStereoModel and BiDAStereoModel (StereoAnyVideoModel
-and PPMStereoVDAModel are not ported yet).
+ppmstereo_tpu/models/zoo.py). Registered: PPMStereoModel, PPMStereoVDAModel
+and the baselines DynamicStereoModel, RAFTStereoModel, BiDAStereoModel and
+StereoAnyVideoModel.
 
     predictor = model_zoo("PPMStereoModel", kernel_size=10, iters=10,
                           params=load_npz("checkpoints/anchor_r5.npz"))
@@ -29,6 +29,7 @@ from ppmstereo_tpu_torch.models.dynamic_stereo import DynamicStereo, DynamicSter
 from ppmstereo_tpu_torch.models.inference import SlidingWindowPredictor
 from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 from ppmstereo_tpu_torch.models.raft_stereo import RAFTStereoConfig, RAFTStereoVideoAdapter
+from ppmstereo_tpu_torch.models.stereoanyvideo import StereoAnyVideo, StereoAnyVideoConfig
 from ppmstereo_tpu_torch.utils.device import resolve_device, set_precision
 from ppmstereo_tpu_torch.utils.init import init_model
 from ppmstereo_tpu_torch.utils.weights import load_flax_params
@@ -82,19 +83,23 @@ class StereoVideoPredictor:
     kernel_size) a window encodes its frames in one call instead: one frame
     a call cost a strict 320x512 window of 9 frames 15.6 % on an H100
     (tools/window_bits.py), so there the cache is not bit-equal to strict.
-    A model without `encode_frames` runs whole windows."""
+    A model without per-frame encoders (the baselines, and PPMStereo with
+    `use_vfm`, whose backbone attends over the window's frames) runs whole
+    windows."""
 
     def __init__(self, model: nn.Module, kernel_size: int, device: torch.device,
                  fast_mode: bool = False, batch_windows: int = 1, warm_start: bool = False,
                  warm_iters: int | None = None, encoder_cache: bool = False,
                  outputs_uncertainty: bool = True):
         self.model = model = model.to(device).eval()
-        if not hasattr(model, "encode_frames"):
+        if not hasattr(model, "encode_frames") or model.cfg.use_vfm:
             if warm_start or encoder_cache:
+                name = type(model).__name__
+                name += " with use_vfm" if hasattr(model, "encode_frames") else ""
                 raise ValueError(
                     "warm_start and encoder_cache need PPMStereo's encode_frames and "
-                    f"forward(flow_init=, feats=); {type(model).__name__} has neither (the "
-                    "JAX package's wrapper cannot run them for this model either)")
+                    f"forward(flow_init=, feats=); {name} has neither (the JAX package's "
+                    "wrapper cannot run them for this model either)")
 
             def whole_window_fn(left, right):
                 out = model(left, right)
@@ -172,6 +177,25 @@ def _build_ppm(kernel_size: int = 20, iters: int = 20,
                                 warm_iters=warm_iters, encoder_cache=encoder_cache)
 
 
+@register("PPMStereoVDAModel")
+def _build_ppm_vda(kernel_size: int = 20, iters: int = 20,
+                   params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
+                   device: str | torch.device | None = None, fast_mode: bool = False,
+                   batch_windows: int = 1, warm_start: bool = False,
+                   warm_iters: int | None = None, encoder_cache: bool = False,
+                   **cfg_kwargs) -> StereoVideoPredictor:
+    """PPMStereo-VDA: `PPMStereoConfig(use_vfm=True, use_cnet=True,
+    **cfg_kwargs)` (bf16 and the ViT-S backbone by default), in test mode;
+    the other arguments as for PPMStereoModel. It has no per-frame encoders,
+    so warm_start and encoder_cache raise, as the JAX package's constructor
+    takes neither."""
+    cfg = PPMStereoConfig(use_vfm=True, use_cnet=True, **cfg_kwargs)
+    model = PPMStereo(cfg, iters, test_mode=True)
+    return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
+                           warm_start or warm_iters is not None, encoder_cache,
+                           outputs_uncertainty=True)
+
+
 def _load_or_init(model: nn.Module, params, seed: int) -> None:
     if params is None:
         init_model(model, seed)
@@ -181,19 +205,22 @@ def _load_or_init(model: nn.Module, params, seed: int) -> None:
 
 def _build_baseline(model: nn.Module, kernel_size: int, params, seed: int, device,
                     fast_mode: bool, batch_windows: int, warm: bool,
-                    encoder_cache: bool) -> StereoVideoPredictor:
-    """A baseline with the JAX package's flat parameters (`params`: its
-    init's, or the npz of an import CLI) or, with `params=None`, the port's
-    initialisation from `seed`; on `cuda` unless `device` names another
-    device. The output has no uncertainty; a warm start (`warm`) and
-    encoder_cache raise (see StereoVideoPredictor)."""
+                    encoder_cache: bool, outputs_uncertainty: bool = False
+                    ) -> StereoVideoPredictor:
+    """A whole-window model with the JAX package's flat parameters
+    (`params`: its init's, or the npz of an import CLI) or, with
+    `params=None`, the port's initialisation from `seed`; on `cuda` unless
+    `device` names another device. The output has no uncertainty unless
+    `outputs_uncertainty`; a warm start (`warm`) and encoder_cache raise
+    (see StereoVideoPredictor)."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
     _load_or_init(model, params, seed)
     return StereoVideoPredictor(model, kernel_size, dev, fast_mode=fast_mode,
                                 batch_windows=batch_windows, warm_start=warm,
-                                encoder_cache=encoder_cache, outputs_uncertainty=False)
+                                encoder_cache=encoder_cache,
+                                outputs_uncertainty=outputs_uncertainty)
 
 
 @register("DynamicStereoModel")
@@ -237,5 +264,21 @@ def _build_bida(kernel_size: int = 20, iters: int = 10,
     (f32 by default), in test mode; the other arguments as for
     PPMStereoModel (`_build_baseline`)."""
     model = BiDAStereo(BiDAStereoConfig(**cfg_kwargs), iters, test_mode=True)
+    return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
+                           warm_start or warm_iters is not None, encoder_cache)
+
+
+@register("StereoAnyVideoModel")
+def _build_sav(kernel_size: int = 20, iters: int = 12,
+               params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
+               device: str | torch.device | None = None, fast_mode: bool = False,
+               batch_windows: int = 1, warm_start: bool = False,
+               warm_iters: int | None = None, encoder_cache: bool = False,
+               **cfg_kwargs) -> StereoVideoPredictor:
+    """StereoAnyVideo at `StereoAnyVideoConfig(**cfg_kwargs)` (f32 and the
+    ViT-S backbone by default, as shipped), in test mode, under cuDNN's
+    benchmark mode in f32; the other arguments as for PPMStereoModel
+    (`_build_baseline`)."""
+    model = StereoAnyVideo(StereoAnyVideoConfig(**cfg_kwargs), iters, test_mode=True)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
                            warm_start or warm_iters is not None, encoder_cache)

@@ -39,3 +39,24 @@ class LayerNorm(nn.Module):
         y = F.layer_norm(x.float(), x.shape[-1:], self.weight.float(),
                          self.bias.float(), self.epsilon)
         return y.to(x.dtype)
+
+
+class GroupNorm(nn.Module):
+    """GroupNorm over (B, ..., C): each of `num_groups` channel groups
+    normalised over every non-batch axis (flax `nn.GroupNorm`'s default
+    reduction, torch's GroupNorm on (B, C, ...)), with a learned scale
+    (`weight`) and bias; f32 statistics, output in the input's dtype."""
+
+    def __init__(self, num_groups: int, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.num_groups = num_groups
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, g = x.shape[0], x.shape[-1], self.num_groups
+        x32 = x.float().reshape(b, -1, g, c // g)
+        var, mean = torch.var_mean(x32, dim=(1, 3), keepdim=True, correction=0)
+        y = ((x32 - mean) * torch.rsqrt(var + self.epsilon)).reshape(x.shape)
+        return (y * self.weight.float() + self.bias.float()).to(x.dtype)

@@ -1,6 +1,7 @@
-"""Sequence update blocks: the recurrent refinement cells of PPMStereo and
-DynamicStereo (counterpart of ppmstereo_tpu/nn/update.py::FlowHead,
-Aggregate, SequenceUpdateBlock3D, DSSequenceUpdateBlock3D). Tensors are
+"""Sequence update blocks: the recurrent refinement cells of PPMStereo,
+StereoAnyVideo and DynamicStereo (counterpart of
+ppmstereo_tpu/nn/update.py::FlowHead, Aggregate, SequenceUpdateBlock3D,
+SAVSequenceUpdateBlock3D, DSSequenceUpdateBlock3D). Tensors are
 (B, T, H, W, C)."""
 
 from __future__ import annotations
@@ -104,6 +105,47 @@ class SequenceUpdateBlock3D(nn.Module):
             x = self.time_attn(x)
         if self.with_space_attn:
             x = self.space_attn(x)
+        net = self.gru(net, x)
+        if compute_mask:
+            return net, self.flow_head(net), self.get_mask(net)
+        return net, self.flow_head(net)
+
+
+class SAVSequenceUpdateBlock3D(nn.Module):
+    """StereoAnyVideo's update cell: an all-relu motion encoder (its convs
+    live on the block), time and space attention on the GRU input (256
+    wide, always on), SKSepConvGRU3D, the 3x3x3 flow head and the 3-D mask
+    head of the convex upsample by 4 (27 x 4 x 4 channels).
+
+    The GRU reads cat[context (hidden_dim wide), motion (126 + the flow)]."""
+
+    def __init__(self, hidden_dim: int = 128, cor_planes: int = 128,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        d, m = hidden_dim, MOTION_DIM
+        self.convc1 = Conv(cor_planes, 256, (1, 1), padding=(0, 0), dtype=dtype)
+        self.convc2 = Conv(256, 192, (3, 3), dtype=dtype)
+        self.convf1 = Conv(2, 128, (7, 7), dtype=dtype)
+        self.convf2 = Conv(128, 64, (3, 3), dtype=dtype)
+        self.conv = Conv(192 + 64, m - 2, (3, 3), dtype=dtype)
+        self.gru = SKSepConvGRU3D(d, d + m, dtype)
+        self.flow_head = FlowHead(d, dtype)
+        self.mask_conv1 = Conv(d, d + m, (3, 3, 3), dtype=dtype)
+        self.mask_conv2 = Conv(d + m, 27 * 4 * 4, (1, 1, 1), padding=(0, 0, 0), dtype=dtype)
+        self.time_attn = TimeAttnBlock(d + m, 8, dtype)
+        self.space_attn = SpaceAttnBlock(d + m, 8, dtype)
+
+    def get_mask(self, net: torch.Tensor) -> torch.Tensor:
+        return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)))
+
+    def forward(self, net, inp, corrs, flow, compute_mask: bool = False):
+        """Returns (net, delta_flow), and with `compute_mask` (train mode)
+        also the mask of the new state: (net, delta_flow, mask)."""
+        cor = F.relu(self.convc2(F.relu(self.convc1(corrs))))
+        flo = F.relu(self.convf2(F.relu(self.convf1(flow))))
+        motion = F.relu(self.conv(torch.cat([cor, flo], dim=-1)))
+        x = torch.cat([inp, motion, flow], dim=-1)
+        x = self.space_attn(self.time_attn(x))
         net = self.gru(net, x)
         if compute_mask:
             return net, self.flow_head(net), self.get_mask(net)

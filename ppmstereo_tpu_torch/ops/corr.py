@@ -1,16 +1,16 @@
 """All-pairs 1-D (epipolar) correlation volume and its pyramid lookup, the
-2-D bilinear sampler and BiDAStereo's triple-frame correlation.
+2-D bilinear sampler, BiDAStereo's triple-frame correlation and
+StereoAnyVideo's all-in-all-pair correlation.
 
-Counterpart of ppmstereo_tpu/ops/corr.py (AAPC, StereoAnyVideo's
-correlation, is not ported yet). The lookup
+Counterpart of ppmstereo_tpu/ops/corr.py. The lookup
 is the two-tap gather form (`_lookup_level_gather`) in plain PyTorch, as the
 JAX model leaves its lookup to XLA. It is the plain version of kernel 6,
 `kernels/corr_lookup.py` (the counterpart of the JAX package's Pallas lookup
 kernel), which the model runs in test mode; train mode runs this lookup,
 which autograd differentiates.
 
-`bilinear_sample_2d` and `tfcl_correlation` are XLA code in the JAX
-package, not Pallas kernels, and stay plain PyTorch here.
+`bilinear_sample_2d`, `tfcl_correlation` and `aapc_correlation` are XLA
+code in the JAX package, not Pallas kernels, and stay plain PyTorch here.
 
 Tensors are channels-last. fmap: (B, H, W, C). volume: (B, H, W1, W2).
 """
@@ -127,3 +127,27 @@ def tfcl_correlation(left: torch.Tensor, rights_warped, psize: tuple[int, int] =
             for dx in range(psize[1]):
                 outs.append((left * _shift_slice(right_pad, dy, dx, h, w)).mean(dim=-1))
     return torch.stack(outs, dim=-1)
+
+
+def aapc_correlation(left: torch.Tensor, right_warped: torch.Tensor,
+                     psize: tuple[int, int] = (1, 9)) -> torch.Tensor:
+    """StereoAnyVideo's all-in-all-pair correlation: the channels split into
+    4 groups; in each, every shift of `left` over a py x px patch times every
+    shift of `right_warped` over it (replicate padding), summed over the
+    group's channels -> (B,H,W, 4 (py px)^2), ordered by group, then the
+    left shift (dy1, dx1), then the right shift (dy2, dx2).
+
+    One batched product over the stacked shifts: (B,H,W,4,P,C/4) times its
+    transpose, P = py px, where a loop over the 4 P^2 products would launch
+    hundreds of kernels an iteration."""
+    b, h, w, c = left.shape
+    py, px = psize
+
+    def shifts(x):  # (B,H,W,C) -> (B,H,W,4,P,C/4)
+        x_pad = _edge_pad_hw(x, py // 2, px // 2)
+        s = torch.stack([_shift_slice(x_pad, dy, dx, h, w) for dy in range(py)
+                         for dx in range(px)], dim=-2)
+        return s.reshape(b, h, w, py * px, 4, c // 4).transpose(-3, -2)
+
+    out = torch.matmul(shifts(left), shifts(right_warped).transpose(-1, -2))
+    return out.reshape(b, h, w, -1)

@@ -1,7 +1,8 @@
 """A fresh initialisation of the port's models that follows the JAX
 modules' initializers (not torch's defaults), so a run from scratch starts
 from the same distributions as the JAX package's `init` of the same model
-(PPMStereo, DynamicStereo, RAFT-Stereo, BiDAStereo with its RAFT):
+(PPMStereo with and without the VDA backbone, DynamicStereo, RAFT-Stereo,
+BiDAStereo with its RAFT, StereoAnyVideo):
 
   * Dense and Conv layers of the JAX `Dense` / `Conv` wrappers: kernel
     variance_scaling(1/3, fan_in, uniform) = U(+-1/sqrt(fan_in)), bias
@@ -20,7 +21,13 @@ from the same distributions as the JAX package's `init` of the same model
   * LayerNorm scale 1, bias 0; the SST `time_embed` and the play blend
     `beta`: zeros;
   * FrozenBatchNorm scale 1, bias 0, mean 0, var 1; BiDAStereo's initial
-    motion state `init_hidden_state`: a unit normal.
+    motion state `init_hidden_state`: a unit normal;
+  * the Video-Depth-Anything backbone (nn/vda): DINOv2's dense layers and
+    `pos_embed` truncated normal of std 0.02, zero biases and `cls_token`,
+    LayerScale 1; its patch embedding, the motion modules' dense layers and
+    the DPT head's transposed convolutions lecun_normal (flax's default),
+    zero bias; the motion modules' `proj_out` zeros; GroupNorm scale 1,
+    bias 0; MultiLevelEncoderVFM's convs `kaiming_out`.
 
 The baselines have no trained weights in the repository, so on the card
 they run from this initialisation: it only has to give finite,
@@ -42,8 +49,10 @@ from ppmstereo_tpu_torch.models.raft import FrozenBatchNorm, RAFTTrunk
 from ppmstereo_tpu_torch.nn.attention import LoFTREncoderLayer, TimeAttnBlock
 from ppmstereo_tpu_torch.nn.common import ConvND, Linear
 from ppmstereo_tpu_torch.nn.convnext import GRN, ConvNeXtBlock, ConvNeXtV2
-from ppmstereo_tpu_torch.nn.encoder import BasicEncoder
-from ppmstereo_tpu_torch.nn.norm import LayerNorm
+from ppmstereo_tpu_torch.nn.encoder import BasicEncoder, MultiLevelEncoderVFM
+from ppmstereo_tpu_torch.nn.norm import GroupNorm, LayerNorm
+from ppmstereo_tpu_torch.nn.vda.dinov2 import DINOv2, LayerScale
+from ppmstereo_tpu_torch.nn.vda.motion import TemporalModule
 
 _TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated at +-2
 
@@ -59,6 +68,11 @@ def _trunc_normal(t: torch.Tensor, std: float, gen: torch.Generator) -> None:
     nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=gen)
 
 
+def _lecun_normal(weight: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
+    """flax's default kernel init: variance_scaling(1, fan_in, truncated normal)."""
+    _trunc_normal(weight, math.sqrt(1.0 / fan_in) / _TRUNC_STD, gen)
+
+
 def init_model(model: nn.Module, seed: int = 0) -> None:
     """Initialise every parameter (and FrozenBatchNorm's statistics) of a
     port model in place, on the CPU generator seeded with `seed` (move the
@@ -72,7 +86,7 @@ def init_model(model: nn.Module, seed: int = 0) -> None:
                 mod.weight.uniform_(-bound, bound, generator=gen)
                 if mod.bias is not None:
                     mod.bias.uniform_(-bound, bound, generator=gen)
-            elif isinstance(mod, LayerNorm):
+            elif isinstance(mod, (LayerNorm, GroupNorm)):
                 mod.weight.fill_(1.0)
                 mod.bias.zero_()
             elif isinstance(mod, GRN):
@@ -81,7 +95,8 @@ def init_model(model: nn.Module, seed: int = 0) -> None:
             elif isinstance(mod, FrozenBatchNorm):
                 for t, v in ((mod.weight, 1.0), (mod.bias, 0.0), (mod.mean, 0.0), (mod.var, 1.0)):
                     t.fill_(v)
-        encoders = [m for m in model.modules() if isinstance(m, (BasicEncoder, RAFTTrunk))]
+        encoders = [m for m in model.modules()
+                    if isinstance(m, (BasicEncoder, RAFTTrunk, MultiLevelEncoderVFM))]
         for mod in (m for enc in encoders for m in enc.modules()):
             if isinstance(mod, ConvND):
                 _, fan_out = _fans(mod.weight)
@@ -104,6 +119,29 @@ def init_model(model: nn.Module, seed: int = 0) -> None:
                     layer.bias.zero_()
             elif isinstance(mod, MultiMotionEncoder):
                 mod.init_hidden_state.normal_(generator=gen)
+            elif isinstance(mod, DINOv2):
+                _lecun_normal(mod.patch_embed.weight, _fans(mod.patch_embed.weight)[0], gen)
+                mod.patch_embed.bias.zero_()
+                mod.cls_token.zero_()
+                _trunc_normal(mod.pos_embed, 0.02, gen)
+                for lin in mod.modules():
+                    if isinstance(lin, Linear):
+                        _trunc_normal(lin.weight, 0.02, gen)
+                        lin.bias.zero_()
+            elif isinstance(mod, LayerScale):
+                mod.gamma.fill_(1.0)
+            elif isinstance(mod, TemporalModule):
+                for lin in mod.modules():
+                    if isinstance(lin, Linear):
+                        _lecun_normal(lin.weight, lin.weight.shape[1], gen)
+                        if lin.bias is not None:
+                            lin.bias.zero_()
+                mod.proj_out.weight.zero_()
+                mod.proj_out.bias.zero_()
+            elif isinstance(mod, nn.ConvTranspose2d):  # (in, out, kh, kw)
+                _lecun_normal(mod.weight, mod.weight.shape[0] * math.prod(mod.weight.shape[2:]),
+                              gen)
+                mod.bias.zero_()
         for name, p in model.named_parameters():
             if name.endswith(("time_embed", "aggregator.beta")):
                 p.zero_()

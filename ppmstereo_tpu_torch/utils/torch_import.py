@@ -9,6 +9,8 @@ transposed once into the flax layout:
   Conv2d weight  (O, I, kh, kw)      -> (kh, kw, I, O)
   Conv3d weight  (O, I, kt, kh, kw)  -> (kt, kh, kw, I, O)
   Linear weight  (O, I)              -> (I, O)
+  ConvTranspose2d weight (I, O, kh, kw) -> (kh, kw, I, O), flipped in space
+                 (`deconv2d_w`, by the table's `vda_transform`)
   norm weights, biases and statistics as they are.
 
 The result is the flat parameter file both packages read (`cli/
@@ -60,6 +62,13 @@ def conv2d_w(w: np.ndarray) -> np.ndarray:
 
 def conv3d_w(w: np.ndarray) -> np.ndarray:
     return np.transpose(w, (2, 3, 4, 1, 0))
+
+
+def deconv2d_w(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d (I, O, kh, kw) -> flax ConvTranspose (kh, kw, I,
+    O), flipped in space: flax's transposed convolution (transpose_kernel=
+    False) applies its kernel mirrored against torch's."""
+    return np.transpose(w, (2, 3, 0, 1))[::-1, ::-1].copy()
 
 
 def linear_w(w: np.ndarray) -> np.ndarray:

@@ -6,11 +6,19 @@ port by a rename and layout transposes: the port's submodules carry the
 flax path names, so `params/a/b/<leaf>` is `a.b.<leaf>` with
 
   kernel -> weight   Dense (in, out) -> (out, in); Conv HWIO -> OIHW and
-                     DHWIO -> OIDHW
-  scale  -> weight   LayerNorm, FrozenBatchNorm
-  bias, gamma, beta, time_embed, init_hidden_state, and FrozenBatchNorm's
-  statistics mean and var (buffers of the port) keep their names and
-  layouts.
+                     DHWIO -> OIDHW; ConvTranspose (kh, kw, I, O) -> torch's
+                     (I, O, kh, kw), flipped in space (flax's transposed
+                     convolution applies its kernel mirrored against
+                     torch's)
+  scale  -> weight   LayerNorm, GroupNorm, FrozenBatchNorm
+  bias, gamma (LayerScale, GRN), beta, time_embed, init_hidden_state,
+  DINOv2's cls_token and pos_embed, and FrozenBatchNorm's statistics mean
+  and var (buffers of the port) keep their names and layouts.
+
+A 4-D kernel is a ConvTranspose's where the model holds an
+`nn.ConvTranspose2d` at that path (`transposed_kernels`); the flat layout
+alone cannot tell, since ViT-S's two transposed convolutions have as many
+inputs as outputs.
 
 `state_dict_to_flax` is the inverse: it writes the port's parameters (a
 trained port model, or its gradients) in the flat flax layout, which
@@ -43,8 +51,28 @@ def flatten_params(tree: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
     return flat
 
 
-def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor]:
-    """Flat flax parameters -> the port's state_dict (f32 tensors)."""
+def transposed_kernels(model: nn.Module) -> frozenset[str]:
+    """The state_dict names of the model's transposed-convolution weights."""
+    return frozenset(f"{name}.weight" if name else "weight"
+                     for name, mod in model.named_modules()
+                     if isinstance(mod, nn.ConvTranspose2d))
+
+
+def transposed_to_torch(kernel: np.ndarray) -> np.ndarray:
+    """A flax ConvTranspose kernel (kh, kw, I, O) as torch's ConvTranspose2d
+    weight (I, O, kh, kw): flax applies the kernel mirrored in space."""
+    return kernel[::-1, ::-1].transpose(2, 3, 0, 1)
+
+
+def transposed_to_flax(weight: np.ndarray) -> np.ndarray:
+    """The inverse of `transposed_to_torch`."""
+    return weight.transpose(2, 3, 0, 1)[::-1, ::-1]
+
+
+def flax_to_state_dict(flat: Mapping[str, np.ndarray],
+                       transposed: frozenset[str] = frozenset()) -> dict[str, torch.Tensor]:
+    """Flat flax parameters -> the port's state_dict (f32 tensors);
+    `transposed`: the names of transposed-convolution weights."""
     state = {}
     for path, arr in flat.items():
         parts = path.split("/")
@@ -52,28 +80,31 @@ def flax_to_state_dict(flat: Mapping[str, np.ndarray]) -> dict[str, torch.Tensor
             parts = parts[1:]
         leaf = parts[-1]
         arr = np.asarray(arr, dtype=np.float32)
-        if leaf == "kernel":
+        name = ".".join(parts[:-1] + ["weight" if leaf in ("kernel", "scale") else leaf])
+        if name in transposed:
+            arr = transposed_to_torch(arr)
+        elif leaf == "kernel":
             if arr.ndim not in _KERNEL_PERM:
                 raise ValueError(f"{path}: unexpected kernel rank {arr.ndim}")
             arr = arr.transpose(_KERNEL_PERM[arr.ndim])
-            leaf = "weight"
-        elif leaf == "scale":
-            leaf = "weight"
-        state[".".join(parts[:-1] + [leaf])] = torch.from_numpy(np.array(arr, order="C"))
+        state[name] = torch.from_numpy(np.array(arr, order="C"))
     return state
 
 
-def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarray]:
+def state_dict_to_flax(state: Mapping[str, torch.Tensor],
+                       transposed: frozenset[str] = frozenset()) -> dict[str, np.ndarray]:
     """The port's state_dict (or any mapping of its parameter names to
     tensors of the parameters' shapes, such as their gradients) -> flat flax
-    parameters {"params/a/b/leaf": f32 array}. A 1-D `weight` is a LayerNorm
-    or FrozenBatchNorm scale; every other `weight` is a Dense or Conv
-    kernel."""
+    parameters {"params/a/b/leaf": f32 array}. A 1-D `weight` is a norm's
+    scale; the names in `transposed` are ConvTranspose kernels; every other
+    `weight` is a Dense or Conv kernel."""
     flat = {}
     for name, tensor in state.items():
         *parents, leaf = name.split(".")
         arr = tensor.detach().float().cpu().numpy()
-        if leaf == "weight" and arr.ndim == 1:
+        if name in transposed:
+            arr, leaf = transposed_to_flax(arr), "kernel"
+        elif leaf == "weight" and arr.ndim == 1:
             leaf = "scale"
         elif leaf == "weight":
             if arr.ndim not in _KERNEL_INV:
@@ -87,7 +118,7 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor]) -> dict[str, np.ndarra
 def export_npz(model: nn.Module, path: str | Path) -> None:
     """Save the model's parameters as a flat flax npz (f32), the format of
     checkpoints/anchor_r5.npz that `load_npz` and both packages read."""
-    np.savez(path, **state_dict_to_flax(model.state_dict()))
+    np.savez(path, **state_dict_to_flax(model.state_dict(), transposed_kernels(model)))
 
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
@@ -99,7 +130,7 @@ def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:
     length loads as it is, and the SST resizes the embedding to each clip
     at apply time, as the JAX package does. The parameter is resized in
     place, so an optimiser that holds it keeps holding it."""
-    state = flax_to_state_dict(flat)
+    state = flax_to_state_dict(flat, transposed_kernels(model))
     params = dict(model.named_parameters())
     for name, value in state.items():
         p = params.get(name)

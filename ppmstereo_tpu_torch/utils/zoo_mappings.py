@@ -1,8 +1,8 @@
-"""Reference state-dict key -> flax parameter path, for the baselines the
-port has: DynamicStereo, BiDAStereo with RAFT, RAFT and RAFT-Stereo (the
-port's copy of ppmstereo_tpu/utils/zoo_mappings.py; the tables are equal key
-for key, tests/test_torch_import.py). The StereoAnyVideo and PPMStereo-VDA
-tables wait for those models (ROADMAP §1).
+"""Reference state-dict key -> flax parameter path, for the zoo's other
+families: DynamicStereo, BiDAStereo with RAFT, RAFT, RAFT-Stereo,
+StereoAnyVideo and PPMStereo-VDA (the port's copy of
+ppmstereo_tpu/utils/zoo_mappings.py; the tables are equal key for key,
+tests/test_torch_import.py).
 
 Same contract as utils/ppm_mapping.py: every live reference tensor appears
 as a key, so a trained reference checkpoint imports losslessly; the keys
@@ -240,6 +240,80 @@ def raftstereo_mapping(t: str = "", f: str = "") -> dict[str, str]:
         m.update(_conv(
             f"{tp}context_zqr_convs.{i}", f"{fp}context_zqr_convs_{i}/Conv_0"
         ))
+    return m
+
+
+def sav_update_block_mapping(t: str, f: str) -> dict[str, str]:
+    """StereoAnyVideo SequenceUpdateBlock3D (reference
+    stereoanyvideo_update.py:353-387) -> nn/update.py::SAVSequenceUpdateBlock3D
+    (motion-encoder convs live directly on the flax block)."""
+    m = {}
+    for name in ("convc1", "convc2", "convf1", "convf2", "conv"):
+        m.update(_conv(f"{t}.encoder.{name}", f"{f}/{name}/Conv_0"))
+    m.update(sk_gru3d_mapping(f"{t}.gru", f"{f}/gru"))
+    m.update(_conv(f"{t}.flow_head.conv1", f"{f}/flow_head/Conv_0/Conv_0"))
+    m.update(_conv(f"{t}.flow_head.conv2", f"{f}/flow_head/Conv_1/Conv_0"))
+    m.update(_conv(f"{t}.mask3d.0", f"{f}/mask_conv1/Conv_0"))
+    m.update(_conv(f"{t}.mask3d.2", f"{f}/mask_conv2/Conv_0"))
+    m.update(time_attn_mapping(f"{t}.time_attn", f"{f}/time_attn"))
+    m.update(loftr_layer_mapping(
+        f"{t}.space_attn.encoder_layer", f"{f}/space_attn/LoFTREncoderLayer_0"
+    ))
+    return m
+
+
+def stereoanyvideo_mapping(include_vda: bool = True) -> dict[str, str]:
+    """StereoAnyVideo (reference stereoanyvideo.py:76-91)."""
+    m = basic_encoder_mapping("cnet", "cnet")
+    m.update(basic_encoder_mapping("fnet", "fnet"))
+    m["corr_mlp.fc1.weight"] = "corr_mlp_fc1/Dense_0/kernel"
+    m["corr_mlp.fc1.bias"] = "corr_mlp_fc1/Dense_0/bias"
+    m["corr_mlp.fc2.weight"] = "corr_mlp_fc2/Dense_0/kernel"
+    m["corr_mlp.fc2.bias"] = "corr_mlp_fc2/Dense_0/bias"
+    m.update(sav_update_block_mapping("update_block", "update_block"))
+    m.update(_conv("depthnet.conv", "depthnet/conv/Conv_0"))
+    if include_vda:
+        from ppmstereo_tpu_torch.utils.vda_mapping import vda_mapping
+
+        m.update(vda_mapping("depthnet.depthanything", "depthnet/depthanything"))
+    return m
+
+
+def multilevel_vfm_mapping(t: str, f: str) -> dict[str, str]:
+    """MultiLevelEncoder_VFM (reference extractor.py:501-620) ->
+    nn/encoder.py::MultiLevelEncoderVFM. Instance norms carry no params;
+    the reference residual block always has a downsample projection."""
+    m = {}
+    m.update(_conv(f"{t}.conv1", f"{f}/Conv_0/Conv_0"))
+    idx = 0
+    for li in range(1, 6):
+        for bj in range(2):
+            tb, fb = f"{t}.layer{li}.{bj}", f"{f}/ResidualBlock_{idx}"
+            idx += 1
+            m.update(_conv(f"{tb}.conv1", f"{fb}/Conv_0/Conv_0"))
+            m.update(_conv(f"{tb}.conv2", f"{fb}/Conv_1/Conv_0"))
+            m.update(_conv(f"{tb}.downsample.0", f"{fb}/Conv_2/Conv_0"))
+    for s in ("16", "8", "4"):
+        m.update(_conv(f"{t}.upconv_{s}.1", f"{f}/upconv_{s}/Conv_0/Conv_0"))
+        m.update(_conv(f"{t}.decode_{s}x.0", f"{f}/decode_{s}x/Conv_0/Conv_0"))
+        m.update(_conv(f"{t}.decode_{s}x.3", f"{f}/decode_{s}x/Conv_1/Conv_0"))
+    return m
+
+
+def ppmstereo_vda_mapping(attention_type: str | None = None) -> dict[str, str]:
+    """PPMStereo_VDA (reference ppmstereo_VDA.py:44-118): the base PPM
+    mapping with the BasicEncoder fnet replaced by MultiLevelEncoder_VFM
+    + the frozen VideoDepthAnything backbone."""
+    from ppmstereo_tpu_torch.utils.ppm_mapping import ppmstereo_mapping
+    from ppmstereo_tpu_torch.utils.vda_mapping import vda_mapping
+
+    m = {
+        k: v for k, v in ppmstereo_mapping(
+            attention_type=attention_type, use_cnet=True
+        ).items() if not k.startswith("fnet.")
+    }
+    m.update(multilevel_vfm_mapping("fnet", "fnet"))
+    m.update(vda_mapping("backbone", "backbone"))
     return m
 
 

@@ -124,8 +124,8 @@ def test_head_dim_routing_on_card():
 
 @pytest.mark.parametrize("kwargs,error,match", [
     ({"different_update_blocks": False}, NotImplementedError, "shared update blocks"),
-    ({"use_vfm": True}, NotImplementedError, r"ROADMAP §1 item 8"),
-    ({"vfm_encoder": "vitl"}, NotImplementedError, r"ROADMAP §1 item 8"),
+    ({"use_vfm": True, "vfm_encoder": "vitb"}, ValueError, "Video-Depth-Anything has"),
+    ({"vfm_encoder": "vitg"}, ValueError, "Video-Depth-Anything has"),
     ({"corr_radius": kl.MAX_RADIUS + 1}, ValueError, "kernel 6"),
     ({"corr_levels": kl.MAX_LEVELS + 1}, ValueError, "kernel 6"),
     ({"corr_radius": 0}, ValueError, "kernel 6"),

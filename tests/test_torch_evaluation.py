@@ -323,8 +323,8 @@ def test_cli_refusals(tmp_path):
                     "--iters", "1", "--model_kwargs", "mixed_precision=False"])
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.2"):
         tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])
-    with pytest.raises(ValueError, match="unknown model 'StereoAnyVideoModel'"):
-        tcli.main(["--device", "cpu", "MODEL.model_name=StereoAnyVideoModel"])
+    with pytest.raises(ValueError, match="unknown model 'NoSuchStereoModel'"):
+        tcli.main(["--device", "cpu", "MODEL.model_name=NoSuchStereoModel"])
     with pytest.raises(AttributeError, match="no field nope"):
         tcli.main(["--device", "cpu", "MODEL.nope=1"])
 

@@ -183,7 +183,8 @@ def test_mode_switches_of_the_predictor(anchor):
     overlapping windows run one at a time."""
     flat, _ = anchor
     assert available_models() == ["BiDAStereoModel", "DynamicStereoModel", "PPMStereoModel",
-                                  "RAFTStereoModel"]
+                                  "PPMStereoVDAModel", "RAFTStereoModel",
+                                  "StereoAnyVideoModel"]
 
     def build(**kw):
         return tmodel_zoo("PPMStereoModel", kernel_size=K, iters=ITERS, params=flat,
