@@ -131,6 +131,21 @@ it stopped):
                (batches from both), and train(enable_eval=True,
                save_callback=...) for 2 steps: the callback at the save,
                the in-training evaluation on kernels 1 and 6
+  8b. train_zoo  training the rest of the zoo: PPMStereo-VDA, DynamicStereo,
+               BiDAStereo and StereoAnyVideo, each at TrainConfig(
+               model_name=...) from the port's seeded initialisation: one
+               f32 step on a small clip on the card against the port's CPU
+               path (phase train small parity's limits) and the card's bf16
+               step's loss against it; 4 steps on one batch of the
+               synthetic fallback and 1 on a fresh one: finite losses, a
+               falling loss on the fixed batch, every trainable tensor with
+               a significant gradient moved, every frozen tensor (the
+               ConvNeXt, the VDA backbones, BiDAStereo's RAFT) bit-equal,
+               kernels 2 / 3 / 4 launched 40 / 20 / 20 times a step by
+               PPMStereo-VDA and no kernel by the other three; seconds per
+               step, peak memory, the busy share of one profiled step; then
+               one step of PPMStereo-VDA's train(enable_eval=True), its
+               evaluation on kernels 1 and 6
 
 Every failure raises, so the exit code is not 0. The second-to-last lines
 are the card's `nvidia-smi` name and power limit and a JSON line with one
@@ -1074,15 +1089,17 @@ def significant(grads: dict) -> set:
     return {n for n, g in grads.items() if float(g.abs().max()) >= SIGNIFICANT_GRAD * top}
 
 
-def grad_agreement(got: dict, want: dict) -> dict:
+def grad_agreement(got: dict, want: dict, encoders: tuple = ()) -> dict:
     """The worst ||got - want|| / ||want|| over the significant tensors of
     `want`, apart for tensors of more than one element ("tensor") and of
-    one ("scalar"): {group: (reading, name)}."""
-    worst = {"tensor": (0.0, ""), "scalar": (0.0, "")}
+    one ("scalar"), and for the tensors named with an `encoders` prefix
+    ("encoder"): {group: (reading, name)}."""
+    worst = {"tensor": (0.0, ""), "scalar": (0.0, ""), "encoder": (0.0, "")}
     for name in significant(want):
         w = want[name]
         rel = float((got[name] - w).norm() / w.norm())
-        group = "scalar" if w.numel() == 1 else "tensor"
+        group = ("encoder" if name.startswith(encoders) else
+                 "scalar" if w.numel() == 1 else "tensor")
         worst[group] = max(worst[group], (rel, name))
     return worst
 
@@ -1103,7 +1120,7 @@ def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
     model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=2, test_mode=False)
     load_flax_params(model, flat)
     model.to(dev)
-    state = TrainState(model, TrainOptimizer(model, num_steps=1000))
+    state = TrainState(model, TrainOptimizer(model, num_steps=1000), True)
     grads = {}
     hooks = [p.register_post_accumulate_grad_hook(
         lambda p, n=n: grads.__setitem__(n, p.grad.detach().float().cpu().clone()))
@@ -2919,7 +2936,7 @@ def phase_train(smi: str):
     # every trainable tensor must move but those whose gradient is ~0 (a
     # bias ahead of an instance norm moves by less than an f32 ulp), read
     # by the significance rule of the small parity on the fixed batch
-    live = significant(_grad_max(state.model, fixed))
+    live = significant(_grad_max(state, fixed))
     moved, frozen_moved, still, exempt = 0, [], [], []
     for name, p in state.model.named_parameters():
         changed = not torch.equal(p.detach().cpu(), start[name])
@@ -3132,41 +3149,422 @@ def phase_train_recipe(smi: str):
     return out
 
 
-def _grad_max(model, batch: dict) -> dict:
+# training the rest of the zoo (phase train_zoo): each model at
+# TrainConfig(model_name=...), i.e. the JAX `build_train_model`'s configuration at the
+# shipped recipe (320x512, 5 frames, batch 2, 10 iterations, bf16), from the
+# port's seeded initialisation (no checkpoint of these models is on disk),
+# ZOO_TRAIN_FIXED_STEPS steps on one batch of the synthetic fallback, then
+# ZOO_TRAIN_FRESH_STEPS on fresh batches. PPMStereo-VDA's step runs the play
+# attention's training kernels as PPMStereo's does; the other three launch
+# no kernel of the port.
+ZOO_TRAIN_MODELS = ("ppmstereo_vda", "dynamicstereo", "bidastereo", "stereoanyvideo")
+ZOO_TRAIN_FIXED_STEPS, ZOO_TRAIN_FRESH_STEPS = 4, 1
+ZOO_TRAIN_SEED = 3
+NO_LAUNCHES = {name: 0 for name in TRAIN_LAUNCHES_PER_STEP}
+ZOO_TRAIN_LAUNCHES = {name: TRAIN_LAUNCHES_PER_STEP if name == "ppmstereo_vda" else NO_LAUNCHES
+                      for name in ZOO_TRAIN_MODELS}
+# each model's frozen parts (train/state.py::FROZEN_PREFIXES): bit-equal
+# through the run, and none of them missing
+ZOO_FROZEN = {"ppmstereo_vda": ("cnet.convnext.", "backbone."), "dynamicstereo": (),
+              "bidastereo": ("raft.",), "stereoanyvideo": ("depthnet.depthanything.",)}
+# the small parity's clip (frames, height, width) and iterations: the card's
+# f32 step against the port's CPU path (which tests/test_torch_train_*.py
+# hold against jax.value_and_grad), within phase train small parity's
+# limits; and the card's bf16 step's loss against its f32 step's, the
+# shipped precision against the parity's, within ZOO_TRAIN_BF16_LOSS_TOL
+ZOO_TRAIN_SMALL = (2, 64, 128)
+ZOO_TRAIN_SMALL_ITERS = 2
+ZOO_TRAIN_BF16_LOSS_TOL = 5e-2
+# the feature encoders' gradients (fnet, cnet) reach a parameter through a
+# dozen stacked instance norms, whose backward cancels most of what comes
+# in: at a fresh initialisation f32 rounding is amplified there (both
+# packages' f32 gradients of a fresh encoder read 1.8e-3 to 1.1e-2 against
+# float64: tests/test_torch_train_dynamic_stereo.py). Each model's encoders
+# are held to 2.5-4 times the most the card has read against the CPU on this
+# clip (NVIDIA H100 80GB HBM3: 8.0e-3 PPMStereo-VDA, 2.61e-3 DynamicStereo,
+# 6.31e-4 BiDAStereo, 2.42e-3 StereoAnyVideo), below what the card reads
+# with a wrong encoder norm (ZOO_TRAIN_FAULTS["norm"]: 0.180, 3.14e-2,
+# 2.37e-2 and 2.08e-2); the rest to phase train small parity's limits
+ZOO_ENCODERS = ("fnet.", "cnet.")
+ZOO_TRAIN_ENCODER_GRAD_TOL = {"ppmstereo_vda": 2e-2, "dynamicstereo": 1e-2,
+                              "bidastereo": 2.5e-3, "stereoanyvideo": 1e-2}
+# the other tensors: phase train small parity's limit, but PPMStereo-VDA's,
+# whose play step rounds q/k/v and their gradients to bf16 on both devices
+# in other orders (the card's kernels 2-4, the CPU's plain versions):
+# there, from a fresh initialisation with the play blends on, the roundings
+# that flip move the gradients upstream of the play by up to 3.15e-3 on the
+# card (sst, 2 frames), where PPMStereo from the anchor reads 6.5e-4; held
+# to 1e-2, which the card's step with dk doubled (ZOO_TRAIN_FAULTS["dk"])
+# exceeds at 1.83e-2
+ZOO_TRAIN_GRAD_TOL = {name: 1e-2 if name == "ppmstereo_vda" else TRAIN_GRAD_TOL
+                      for name in ZOO_TRAIN_MODELS}
+# the faults each model's card step is run with, the group of gradients
+# each must put beyond its limit, and the models that run it: the feature
+# encoders' instance norms with the unbiased variance (torch.var's default;
+# the JAX norm divides by the count), and the play attention's dk doubled
+ZOO_TRAIN_FAULTS = {"norm": ("encoder", ZOO_TRAIN_MODELS), "dk": ("tensor", ("ppmstereo_vda",))}
+ZOO_TRAIN_DIR = REPO / "build" / "chip_smoke_train_zoo"
+
+
+def _zoo_start(cfg, blends_on: bool = False):
+    """The model of `cfg` at the port's seeded initialisation on the CPU,
+    and its parameters as flat flax arrays (the trainer's `init_params`).
+    `blends_on`: the play blends at 1 and the time embedding drawn
+    (`_play_blends_on`; at init the blends are 0, and the play's backward
+    then reaches no gradient)."""
+    from ppmstereo_tpu_torch.train.trainer import build_train_model
+    from ppmstereo_tpu_torch.utils.init import init_model
+    from ppmstereo_tpu_torch.utils.weights import model_to_flax
+
+    model, _ = build_train_model(cfg)
+    init_model(model, ZOO_TRAIN_SEED)
+    if blends_on:
+        _play_blends_on(model, ZOO_TRAIN_SEED)
+    return model, model_to_flax(model)
+
+
+def _unbiased_instance_norm(self, x):
+    """InstanceNorm.forward with the unbiased variance: a wrong norm."""
+    import torch
+
+    x32 = x.float()
+    var, mean = torch.var_mean(x32, dim=(x.dim() - 3, x.dim() - 2), keepdim=True, correction=1)
+    return ((x32 - mean) / torch.sqrt(var + self.epsilon)).to(x.dtype)
+
+
+def _zoo_small_step(name: str, dev: str, flat, batch: dict, mixed_precision: bool = False,
+                    fault: str | None = None):
+    """One train_step of `name` (ZOO_TRAIN_SMALL_ITERS iterations) from
+    `flat` on `dev`: (loss, gradients, parameters after the update, the
+    optimiser), the tensors on the CPU. `fault` (ZOO_TRAIN_FAULTS): "norm",
+    the feature encoders' instance norms with the unbiased variance; "dk",
+    the play attention's dk doubled in the backward that `dev` runs."""
+    import types
+
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.nn.norm import InstanceNorm
+    from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState
+    from ppmstereo_tpu_torch.train.step import to_device, train_step
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, build_train_model
+    from ppmstereo_tpu_torch.utils.weights import load_flax_params
+
+    cfg = TrainConfig(model_name=name, sample_len=ZOO_TRAIN_SMALL[0],
+                      train_iters=ZOO_TRAIN_SMALL_ITERS, mixed_precision=mixed_precision)
+    model, has_uncertainty = build_train_model(cfg)
+    load_flax_params(model, flat)
+    model.to(dev)
+    if fault == "norm":
+        norms = [m for n, m in model.named_modules()
+                 if n.startswith(ZOO_ENCODERS) and isinstance(m, InstanceNorm)]
+        assert norms, name
+        for m in norms:
+            m.forward = types.MethodType(_unbiased_instance_norm, m)
+    backward = pa.play_attention_bwd_plain if dev == "cpu" else pa.play_attention_bwd
+    if fault == "dk":
+        setattr(pa, backward.__name__, lambda *a: (lambda g: (g[0], 2 * g[1], g[2]))(
+            backward(*a)))
+    state = TrainState(model, TrainOptimizer(model, num_steps=1000), has_uncertainty)
+    grads = {}
+    hooks = [p.register_post_accumulate_grad_hook(
+        lambda p, n=n: grads.__setitem__(n, p.grad.detach().float().cpu().clone()))
+        for n, p in model.named_parameters() if p.requires_grad]
+    try:
+        state, metrics = train_step(state, to_device(batch, torch.device(dev)))
+        loss = float(metrics["loss"])
+    finally:
+        setattr(pa, backward.__name__, backward)
+        for h in hooks:
+            h.remove()
+    params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
+    return loss, grads, params, state.optimizer
+
+
+def _zoo_train_small(name: str, smi: str) -> dict:
+    """`name`'s f32 train step on the small clip, card against CPU (loss,
+    every gradient, the updated parameters), the card's bf16 step's loss
+    against the card's f32 one, and the card's step with each of its
+    ZOO_TRAIN_FAULTS, which must leave the limit of its group; what
+    disagrees goes to `failures`."""
+    import torch
+
+    from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
+    from ppmstereo_tpu_torch.train.state import onecycle_lr
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig
+
+    torch.set_num_threads(8)
+    frames, h, w = ZOO_TRAIN_SMALL
+    sample = SyntheticStereoDataset(num_seqs=1, sample_len=frames, height=h, width=w,
+                                    seed=1)[0]
+    batch = {"left": sample["img"][None, :, 0], "right": sample["img"][None, :, 1],
+             "disparity": sample["disp"][None, :, 0], "valid": sample["valid"][None, :, 0]}
+    cfg = TrainConfig(model_name=name, sample_len=frames, train_iters=ZOO_TRAIN_SMALL_ITERS,
+                      mixed_precision=False)
+    _, flat = _zoo_start(cfg, blends_on=name == "ppmstereo_vda")
+    l_cpu, g_cpu, p_cpu, opt = _zoo_small_step(name, "cpu", flat, batch)
+    l_cuda, g_cuda, p_cuda, _ = _zoo_small_step(name, "cuda", flat, batch)
+    l_bf16 = _zoo_small_step(name, "cuda", flat, batch, mixed_precision=True)[0]
+    faults = {fault: grad_agreement(_zoo_small_step(name, "cuda", flat, batch, fault=fault)[1],
+                                    g_cpu, ZOO_ENCODERS)[group]
+              for fault, (group, names) in ZOO_TRAIN_FAULTS.items() if name in names}
+    limits = {"encoder": ZOO_TRAIN_ENCODER_GRAD_TOL[name], "tensor": ZOO_TRAIN_GRAD_TOL[name]}
+    loss_rel = abs(l_cuda - l_cpu) / abs(l_cpu)
+    bf16_rel = abs(l_bf16 - l_cuda) / abs(l_cuda)
+    grad = grad_agreement(g_cuda, g_cpu, ZOO_ENCODERS)
+    lr0 = onecycle_lr(0, opt.num_steps, opt.lr)
+    n_total = sum(p.numel() for p in p_cpu.values())
+    n_off = sum(int(((p_cuda[n] - p).abs() > lr0 / 2).sum()) for n, p in p_cpu.items())
+    off_share = n_off / n_total
+    log(f"train_zoo {name} small step {(1, *ZOO_TRAIN_SMALL)}, f32, {ZOO_TRAIN_SMALL_ITERS} "
+        f"iterations, on {smi}: loss cpu {l_cpu:.6f} cuda {l_cuda:.6f} (rel {loss_rel:.2e}, "
+        f"tol {TRAIN_LOSS_TOL}); {len(g_cpu)} gradients, norm ratio at worst "
+        f"{grad['tensor'][0]:.3e} ({grad['tensor'][1]}; tol {ZOO_TRAIN_GRAD_TOL[name]}), "
+        f"one-element "
+        f"{grad['scalar'][0]:.3e} ({grad['scalar'][1]}; tol {TRAIN_SCALAR_GRAD_TOL}), the "
+        f"feature encoders {grad['encoder'][0]:.3e} ({grad['encoder'][1]}; tol "
+        f"{ZOO_TRAIN_ENCODER_GRAD_TOL[name]}); updated parameters {off_share:.2e} of {n_total} "
+        f"elements off by more than lr/2 (tol {TRAIN_UPDATE_TOL}); the card's bf16 step loss "
+        f"{l_bf16:.6f}, rel {bf16_rel:.2e} of the f32 one (tol {ZOO_TRAIN_BF16_LOSS_TOL}); "
+        "the card's step with a fault: " + ", ".join(
+            f"{fault} {reading:.3e} ({where}; the {ZOO_TRAIN_FAULTS[fault][0]} limit)"
+            for fault, (reading, where) in faults.items()))
+    failures = []
+    if set(g_cuda) != set(g_cpu) or not (
+            loss_rel <= TRAIN_LOSS_TOL and grad["tensor"][0] <= ZOO_TRAIN_GRAD_TOL[name]
+            and grad["scalar"][0] <= TRAIN_SCALAR_GRAD_TOL
+            and grad["encoder"][0] <= ZOO_TRAIN_ENCODER_GRAD_TOL[name]
+            and off_share <= TRAIN_UPDATE_TOL):
+        failures.append(f"train_zoo {name}: the card's f32 train step disagrees with the CPU "
+                        "path")
+    for fault, (reading, _) in faults.items():
+        group = ZOO_TRAIN_FAULTS[fault][0]
+        if not reading > limits[group]:
+            failures.append(f"train_zoo {name}: the {group} limit {limits[group]} does not "
+                            f"catch the fault {fault} (read {reading:.3e})")
+    if not (math.isfinite(l_bf16) and bf16_rel <= ZOO_TRAIN_BF16_LOSS_TOL):
+        failures.append(f"train_zoo {name}: the bf16 step's loss {l_bf16} is off the f32 "
+                        f"step's {l_cuda}")
+    return dict(loss_rel=loss_rel, grad=grad, update_off=off_share, bf16_loss_rel=bf16_rel,
+                faults=faults, failures=failures)
+
+
+def _zoo_train_run(name: str, batches: list, smi: str) -> dict:
+    """`train()` of `name` at TrainConfig() on `batches` (the first
+    ZOO_TRAIN_FIXED_STEPS the same batch) from the seeded initialisation:
+    one finite loss a step, a falling loss on the fixed batch, every
+    trainable tensor with a significant gradient moved, every frozen tensor
+    bit-equal, the expected launches each step; then one profiled step."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.train.state import param_label
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
+
+    exp_dir = ZOO_TRAIN_DIR / name
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    cfg = TrainConfig(model_name=name, exp_dir=str(exp_dir), log_freq=1)
+    model0, flat = _zoo_start(cfg)
+    start = {k: v.clone() for k, v in model0.state_dict().items()}
+    del model0
+    marks = []
+
+    def loader():
+        for batch in batches:
+            marks.append(_launch_counts())
+            yield batch
+
+    for fn in (pa.play_attention, pa.play_attention_fwd_res, pa.play_attention_bwd_dq,
+               pa.play_attention_bwd_dkv, kl.corr_lookup_kernel):
+        fn.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = train(cfg, loader=loader(), max_steps=len(batches), init_params=flat,
+                  device="cuda")
+    torch.cuda.synchronize()
+    total_s = time.perf_counter() - t0
+    marks.append(_launch_counts())
+    launches = marks[-1]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    n_steps = len(batches)
+    records = [json.loads(x) for x in (exp_dir / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["loss"] for r in records]
+    step_s = [1.0 / r["steps_per_s"] for r in records]
+    per_step = [{k: marks[i + 1][k] - marks[i][k] for k in launches} for i in range(n_steps)]
+    steady_s = sum(step_s[1:]) / (n_steps - 1)
+    log(f"train_zoo {name} at {cfg.crop_size[0]}x{cfg.crop_size[1]}, {cfg.sample_len} frames, "
+        f"batch {cfg.batch_size}, {cfg.train_iters} iterations, bf16, on {smi}: losses "
+        f"{[round(x, 4) for x in losses]}, seconds per step {[round(x, 3) for x in step_s]} "
+        f"(first {step_s[0]:.3f}; after it mean {steady_s:.3f}), peak memory {peak_gb:.2f} "
+        f"GB, {total_s:.1f} s in train(); launches per step {per_step[0]}")
+    if len(losses) != n_steps or not all(np.isfinite(losses)):
+        raise RuntimeError(f"train_zoo {name}: losses {losses}, not one finite loss a step")
+    if not losses[ZOO_TRAIN_FIXED_STEPS - 1] < losses[0]:
+        raise RuntimeError(f"train_zoo {name}: the fixed batch's loss did not fall: "
+                           f"{losses[:ZOO_TRAIN_FIXED_STEPS]}")
+    if any(step != ZOO_TRAIN_LAUNCHES[name] for step in per_step):
+        raise RuntimeError(f"train_zoo {name}: launches per step {per_step}, expected "
+                           f"{ZOO_TRAIN_LAUNCHES[name]}")
+    live = significant(_grad_max(state, batches[0]))
+    params = dict(state.model.named_parameters())
+    moved, still, exempt, frozen, frozen_moved = 0, [], [], [], []
+    for key, value in state.model.state_dict().items():
+        changed = not torch.equal(value.cpu(), start[key])
+        if param_label(key) == "frozen":  # parameters and buffers
+            frozen.append(key)
+            frozen_moved += [key] if changed else []
+        elif key not in params:
+            continue
+        elif changed:
+            moved += 1
+        else:
+            (still if key in live else exempt).append(key)
+    parts = {prefix: sum(k.startswith(prefix) for k in frozen) for prefix in ZOO_FROZEN[name]}
+    log(f"train_zoo {name}: {moved} trainable tensors moved; {len(exempt)} with a gradient "
+        f"below {SIGNIFICANT_GRAD} of the largest did not; {len(still)} others did not "
+        f"{still}; {len(frozen_moved)} of {len(frozen)} frozen tensors moved "
+        f"{frozen_moved[:5]}, frozen tensors by part {parts}")
+    if still or frozen_moved or not all(parts.values()):
+        raise RuntimeError(f"train_zoo {name}: trainable tensors that did not move, frozen "
+                           "ones that did, or a frozen part missing")
+    profile = _profile_train_step(state, batches[0], smi, label=f"train_zoo {name} step",
+                                  host=False)
+    busy = profile.get("device_ms", 0.0) / profile["wall_ms"]
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    return dict(launches=launches, per_step=per_step, losses=losses, step_s=step_s,
+                first_s=step_s[0], steady_s=steady_s, peak_gb=peak_gb, busy=busy,
+                profile=profile, moved=moved, frozen=len(frozen))
+
+
+def _zoo_train_eval(batch: dict, smi: str) -> dict:
+    """One step of PPMStereo-VDA's `train(enable_eval=True)`, its in-training
+    evaluation at step 1: result_intrain_1.json written, kernels 1 and 6
+    launched for each window (two 4-frame clips, and the image dump's
+    window where the logger has a TensorBoard writer), and the evaluation's
+    model holding the trained model's tensors bit for bit (its DPT head's
+    transposed convolutions too)."""
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.train import trainer
+
+    exp_dir = ZOO_TRAIN_DIR / "eval"
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    cfg = trainer.TrainConfig(model_name="ppmstereo_vda", exp_dir=str(exp_dir), eval_freq=1,
+                              log_freq=1)
+    evals, built = [], []
+    run_eval = trainer.run_in_training_eval
+    build = trainer.build_eval_predictor
+
+    def counted_eval(cfg_, params, step, logger, *args, **kwargs):
+        torch.cuda.synchronize()
+        before = pa.play_attention.launches, kl.corr_lookup_kernel.launches
+        results = run_eval(cfg_, params, step, logger, *args, **kwargs)
+        want = LAUNCHES_PER_WINDOW * (2 + (logger.writer is not None))
+        evals.append((pa.play_attention.launches - before[0],
+                      kl.corr_lookup_kernel.launches - before[1], want))
+        return results
+
+    trainer.run_in_training_eval = counted_eval
+    trainer.build_eval_predictor = lambda *a, **k: built.append(build(*a, **k)) or built[-1]
+    try:
+        t0 = time.perf_counter()
+        state = trainer.train(cfg, loader=[batch], max_steps=1, enable_eval=True, device="cuda")
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+    finally:
+        trainer.run_in_training_eval = run_eval
+        trainer.build_eval_predictor = build
+    dumped = json.loads((exp_dir / "result_intrain_1.json").read_text())
+    trained = state.model.state_dict()
+    evaluated = built[0].model.state_dict() if len(built) == 1 else {}
+    differ = [k for k, v in trained.items() if k not in evaluated or not torch.equal(
+        evaluated[k].to(v.dtype), v)]
+    log(f"train_zoo ppmstereo_vda train(enable_eval=True) on {smi}: {eval_s:.1f} s; kernel 1 "
+        f"and 6 launches in the evaluation and the expected {evals}; EPE "
+        f"{dumped['aggregate']['epe_mean']:.3f} px (untrained); {len(differ)} of "
+        f"{len(trained)} tensors of the evaluated model differ from the trained one's "
+        f"{differ[:5]}")
+    if len(evals) != 1 or not evals[0][0] == evals[0][1] == evals[0][2] \
+            or not math.isfinite(dumped["aggregate"]["epe_mean"]) or differ \
+            or set(evaluated) != set(trained):
+        raise RuntimeError(f"train_zoo ppmstereo_vda evaluation: launches {evals}, "
+                           f"{dumped['aggregate']}, tensors that differ {differ[:5]}")
+    shutil.rmtree(exp_dir, ignore_errors=True)
+    return dict(play_launches=evals[0][0], lookup_launches=evals[0][1], seconds=eval_s)
+
+
+def phase_train_zoo(smi: str) -> dict:
+    """Each of ZOO_TRAIN_MODELS: the small parity (`_zoo_train_small`) and a
+    short run at TrainConfig() (`_zoo_train_run`) on batches of the
+    synthetic fallback; then PPMStereo-VDA's in-training evaluation."""
+    from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig
+
+    cfg = TrainConfig()
+    data = iter(fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
+                                 batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                                 seed=ZOO_TRAIN_SEED))
+    fixed = next(data)
+    batches = [fixed] * ZOO_TRAIN_FIXED_STEPS + [next(data) for _ in range(ZOO_TRAIN_FRESH_STEPS)]
+    out, failures = {}, []
+    for name in ZOO_TRAIN_MODELS:
+        t0 = time.perf_counter()
+        small = _zoo_train_small(name, smi)
+        failures += small["failures"]
+        out[name] = dict(_zoo_train_run(name, batches, smi), small=small,
+                         seconds=time.perf_counter() - t0)
+    out["eval"] = _zoo_train_eval(fixed, smi)
+    if failures:  # read after every model has run, so one run shows them all
+        raise RuntimeError("; ".join(failures))
+    return out
+
+
+def _grad_max(state, batch: dict) -> dict:
     """Each trainable tensor's largest |gradient| of the sequence loss on
     `batch`, with no update."""
     import torch
 
     from ppmstereo_tpu_torch.train.loss import sequence_loss
-    from ppmstereo_tpu_torch.train.step import to_device
+    from ppmstereo_tpu_torch.train.step import predictions, to_device
 
     batch = to_device(batch, torch.device("cuda"))
-    preds, uncs = model(batch["left"], batch["right"])
+    preds, uncs = predictions(state, batch["left"], batch["right"])
     loss, _ = sequence_loss(preds, batch["disparity"], batch["valid"], uncertainties=uncs)
     loss.backward()
-    grads = {n: p.grad.abs().max().cpu() for n, p in model.named_parameters()
+    grads = {n: p.grad.abs().max().cpu() for n, p in state.model.named_parameters()
              if p.grad is not None}
-    model.zero_grad(set_to_none=True)
+    state.model.zero_grad(set_to_none=True)
     return grads
 
 
-def _profile_train_step(state, batch: dict, smi: str):
+def _profile_train_step(state, batch: dict, smi: str, label: str = "train step",
+                        host: bool = True):
     """One more train step on `batch` under torch.profiler: forward,
     backward and optimiser times by CUDA events, device time by kernel
-    group."""
+    group. host=False traces the device alone (no host-side ranges, so no
+    Di reading): the trace of a step's ~40,000 launches is then processed
+    in a fraction of the time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     from ppmstereo_tpu_torch.train.loss import sequence_loss
-    from ppmstereo_tpu_torch.train.step import to_device
+    from ppmstereo_tpu_torch.train.step import predictions, to_device
 
     batch = to_device(batch, torch.device("cuda"))
     events = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         events[0].record()
-        preds, uncs = state.model(batch["left"], batch["right"])
+        preds, uncs = predictions(state, batch["left"], batch["right"])
         loss, _ = sequence_loss(preds, batch["disparity"], batch["valid"], uncertainties=uncs)
         events[1].record()
         loss.backward()
@@ -3190,7 +3588,7 @@ def _profile_train_step(state, batch: dict, smi: str):
                  and e.device_type == torch.autograd.DeviceType.CUDA]
     di_ms = max([e.device_time_total for e in di_host] or [0.0]) / 1e3
     di_span_ms = max([e.self_device_time_total for e in di_device] or [0.0]) / 1e3
-    log(f"profiled train step on {smi}: wall {wall_ms:.1f} ms (profiler on); forward + loss "
+    log(f"profiled {label} on {smi}: wall {wall_ms:.1f} ms (profiler on); forward + loss "
         f"{fwd_ms:.1f} ms, backward (with the recomputed iterations) {bwd_ms:.1f} ms, "
         f"optimiser {opt_ms:.1f} ms; device busy {device_ms:.1f} ms "
         f"({100 * device_ms / wall_ms:.1f}%), {sum(e.count for e in kernels)} kernel launches; "
@@ -3301,10 +3699,14 @@ def main() -> None:
     with phase("train"):
         train_run = phase_train(smi)
         train_run["recipe"] = phase_train_recipe(smi)
+    with phase("train_zoo"):
+        train_zoo_run = phase_train_zoo(smi)
 
     # launches: kernel 1 on the inference path's run and the VDA family's
     # window (PPMStereo-VDA's; StereoAnyVideo launches none), kernels 2-4 on
-    # the training path's run, kernel 5 on the ring path's run (rank 0);
+    # the training paths' runs (PPMStereo's and, in phase train_zoo,
+    # PPMStereo-VDA's; the other three models launch none), kernel 5 on the
+    # ring path's run (rank 0);
     # kernel 6 on the inference path's, the VDA family's and the ring path's
     # runs (rank 0; test mode), summed with the training path's (0: train
     # mode runs the plain lookup). Each path is driven with its counts set
@@ -3314,7 +3716,11 @@ def main() -> None:
     vda_lookup = sum(run["lookup_launches"] for run in vda_run.values())
     lookup = (main_run["lookup_launches"] + vda_lookup + ring_run["lookup_launches"]
               + train_run["launches"]["corr_lookup"])
-    launches = dict(train_run["launches"], play_attention_fwd=main_run["launches"] + vda_play,
+    train_zoo_launches = {k: sum(train_zoo_run[name]["launches"][k] for name in ZOO_TRAIN_MODELS)
+                          for k in train_run["launches"]}
+    lookup += train_zoo_launches["corr_lookup"]
+    train_launches = {k: n + train_zoo_launches[k] for k, n in train_run["launches"].items()}
+    launches = dict(train_launches, play_attention_fwd=main_run["launches"] + vda_play,
                     play_attention_carry=ring_run["launches"], corr_lookup=lookup)
     records = [kernel_record(key, name, source, replaces, rows[key], launches[name])
                for key, name, source, replaces in _KERNEL_RECORDS]
@@ -3343,6 +3749,12 @@ def main() -> None:
     # kernels 1 and 6 in a 320x512 window of each VDA model (phase vda)
     for record, key in ((records[0], "play_launches"), (records[5], "lookup_launches")):
         record["launches_vda"] = {name: run[key] for name, run in vda_run.items()}
+        # PPMStereo-VDA's in-training evaluation (phase train_zoo)
+        record["launches_train_zoo_eval"] = train_zoo_run["eval"][key]
+    # kernels 2-4 in each zoo model's training run (phase train_zoo)
+    for record in records[1:4]:
+        record["launches_train_zoo"] = {name: train_zoo_run[name]["launches"][record["name"]]
+                                        for name in ZOO_TRAIN_MODELS}
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

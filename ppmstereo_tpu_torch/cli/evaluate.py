@@ -126,7 +126,11 @@ def load_checkpoint(predictor, path: str) -> None:
     """Parameters from the JAX package's flat .npz or the newest step_<n>.pt
     of the port's trainer directory, into the predictor's model."""
     from ppmstereo_tpu_torch.train.checkpoints import CheckpointManager
-    from ppmstereo_tpu_torch.utils.weights import load_npz, state_dict_to_flax
+    from ppmstereo_tpu_torch.utils.weights import (
+        load_npz,
+        state_dict_to_flax,
+        transposed_kernels,
+    )
 
     if path.endswith(".npz"):
         predictor.load_params(load_npz(path))
@@ -138,7 +142,8 @@ def load_checkpoint(predictor, path: str) -> None:
         raise FileNotFoundError(f"no step_<n>.pt checkpoint in {path}")
     saved = torch.load(os.path.join(path, f"step_{steps[-1]}.pt"), map_location="cpu",
                        weights_only=True)
-    predictor.load_params(state_dict_to_flax(saved["model"]))
+    predictor.load_params(state_dict_to_flax(saved["model"],
+                                             transposed_kernels(predictor.model)))
 
 
 def run_eval(cfg: DefaultConfig, device: str = "cuda"):

@@ -47,9 +47,9 @@ MODELS = ("PPMStereoModel", "PPMStereoVDAModel", "DynamicStereoModel", "BiDASter
 def _template(model) -> dict[str, np.ndarray]:
     """The model's parameters in the flat flax layout, without the "params/"
     prefix: the shapes (and the values of anything no table names)."""
-    from ppmstereo_tpu_torch.utils.weights import state_dict_to_flax, transposed_kernels
+    from ppmstereo_tpu_torch.utils.weights import model_to_flax
 
-    flat = state_dict_to_flax(model.state_dict(), transposed_kernels(model))
+    flat = model_to_flax(model)
     return {k.removeprefix("params/"): v for k, v in flat.items()}
 
 

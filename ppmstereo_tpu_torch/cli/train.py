@@ -1,18 +1,22 @@
 """Training entry point of the port, with the JAX CLI's flag names
 (ppmstereo_tpu/cli/train.py) for a one-card run, plus `--device`:
 
-    python -m ppmstereo_tpu_torch.cli.train --num_steps 200000 \\
+    python -m ppmstereo_tpu_torch.cli.train --name ppmstereo --num_steps 200000 \\
         --batch_size 2 --lr 0.0003 --sample_len 5 --train_iters 10
+
+    # the other models of the zoo: ppmstereo_vda, dynamicstereo, bidastereo,
+    # stereoanyvideo (memstereo is ppmstereo)
+    python -m ppmstereo_tpu_torch.cli.train --name stereoanyvideo
 
     # a YAML TrainConfig preset, with dotted overrides on top
     python -m ppmstereo_tpu_torch.cli.train --config preset.yaml num_steps=300
 
     # a tiny run on the CPU
     python -m ppmstereo_tpu_torch.cli.train --device cpu --image_size 64 128 \\
-        --sample_len 3 --train_iters 1 --num_steps 2
+        --sample_len 3 --train_iters 1 --num_steps 2 --name dynamicstereo
 
 With --config the preset (read by `utils/config.py::load_yaml`, its
-`model_kwargs` a mapping of PPMStereoConfig fields) replaces the other flags
+`model_kwargs` a mapping of the model config's fields) replaces the other flags
 but --device; trailing KEY=VALUE arguments override TrainConfig fields
 either way (e.g. log_freq=1). Runs on `cuda` unless `--device` names another
 device; raises without a card. The mesh sizes are TrainConfig fields
@@ -31,7 +35,9 @@ import logging
 def main(argv=None):
     p = argparse.ArgumentParser("ppmstereo_tpu_torch.train")
     p.add_argument("--device", default="cuda", help="torch device (cuda | cuda:N | cpu)")
-    p.add_argument("--name", default="ppmstereo", help="ppmstereo (the only model ported)")
+    p.add_argument("--name", default="ppmstereo",
+                   help="ppmstereo | memstereo | ppmstereo_vda | dynamicstereo | bidastereo | "
+                        "stereoanyvideo")
     p.add_argument("--config", default=None, help="YAML TrainConfig preset")
     p.add_argument("--ckpt_path", default="./outputs/train")
     p.add_argument("--num_steps", type=int, default=200_000)

@@ -23,6 +23,7 @@ from dataclasses import dataclass
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ppmstereo_tpu_torch.nn.common import Dense
 from ppmstereo_tpu_torch.nn.encoder import BasicEncoder
@@ -45,7 +46,8 @@ HIDDEN_DIM = 128  # the GRU state: the context's 32 depth and 96 encoder channel
 class StereoAnyVideoConfig:
     """The JAX package's `StereoAnyVideoConfig` with its defaults, less the
     fields that admit one value here: its hidden_dim (HIDDEN_DIM, the
-    context's width) and remat (an XLA memory switch)."""
+    context's width) and remat (train mode always checkpoints each
+    iteration pair)."""
 
     mixed_precision: bool = False
     encoder: str = "vits"
@@ -107,21 +109,45 @@ class StereoAnyVideo(nn.Module):
         out = self.update_block(net, inp, corrs, flow.to(self.dtype), compute_mask)
         return flow + out[1].float(), out[0], out[2] if compute_mask else None
 
+    def _collect(self, flow, mask, interp_scale: int) -> torch.Tensor:
+        """An iteration's prediction at full resolution."""
+        up = convex_upsample_3d(flow, mask, rate=4)
+        if interp_scale > 1:
+            up = interp_scale * interp_bilinear(
+                up, (interp_scale * up.shape[2], interp_scale * up.shape[3]))
+        return up[..., :1]
+
+    def _pair(self, left, right, flow, net, inp, interp_scale: int):
+        """A train-mode (1, 9) and (3, 3) iteration pair with both
+        predictions: (flow, net, the last mask, prediction 1, prediction 2)."""
+        preds = []
+        for psize in ((1, 9), (3, 3)):
+            flow, net, mask = self._one_iter(left, right, flow, net, inp, psize, True)
+            preds.append(self._collect(flow, mask, interp_scale))
+        return flow, net, mask, *preds
+
     def _stage(self, left, right, flow, net, inp, iters: int, interp_scale: int, preds: list):
         """One cascade scale; the patch alternates (1, 9), (3, 3) by
         iteration. Returns the final flow upsampled by 4 (each stage starts
-        its GRU state afresh from the pooled context)."""
-        collect = not self.test_mode
-        for itr in range(iters):
-            psize = (1, 9) if itr % 2 == 0 else (3, 3)
-            flow, net, mask = self._one_iter(left, right, flow, net, inp, psize, collect)
-            if collect:
-                up = convex_upsample_3d(flow, mask, rate=4)
-                if interp_scale > 1:
-                    up = interp_scale * interp_bilinear(
-                        up, (interp_scale * up.shape[2], interp_scale * up.shape[3]))
-                preds.append(up[..., :1])
-        return convex_upsample_3d(flow, self.update_block.get_mask(net), rate=4)
+        its GRU state afresh from the pooled context). Train mode runs each
+        iteration pair under `torch.utils.checkpoint` (the JAX scan's remat
+        of each pair; its activations are recomputed in the backward pass)
+        and an odd last iteration plainly."""
+        if self.test_mode:
+            for itr in range(iters):
+                psize = (1, 9) if itr % 2 == 0 else (3, 3)
+                flow, net, _ = self._one_iter(left, right, flow, net, inp, psize, False)
+            return convex_upsample_3d(flow, self.update_block.get_mask(net), rate=4)
+        pairs, tail = divmod(iters, 2)
+        for _ in range(pairs):
+            flow, net, mask, *ys = checkpoint(self._pair, left, right, flow, net, inp,
+                                              interp_scale, use_reentrant=False,
+                                              preserve_rng_state=False)
+            preds += ys
+        if tail:
+            flow, net, mask = self._one_iter(left, right, flow, net, inp, (1, 9), True)
+            preds.append(self._collect(flow, mask, interp_scale))
+        return convex_upsample_3d(flow, mask, rate=4)
 
     def forward(self, image1: torch.Tensor, image2: torch.Tensor) -> torch.Tensor:
         with cudnn_autotune(self.dtype == torch.float32):

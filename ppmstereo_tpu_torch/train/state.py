@@ -3,9 +3,17 @@ partition (counterpart of ppmstereo_tpu/train/state.py::make_optimizer).
 
 The JAX package's optimiser is an optax chain, reproduced here:
 
-  * three partitions by parameter name: `frozen` (the ConvNeXt backbone of
-    the context net, `cnet.convnext.*`: no update, no decay), `no_decay`
-    (`sst.time_embed`) and `train` (everything else);
+  * three partitions by parameter name: `frozen` (no update, no decay),
+    `no_decay` (`sst.time_embed`) and `train` (everything else). Frozen
+    are the pretrained backbones every model of the zoo holds fixed: the
+    context net's ConvNeXt (`cnet.convnext.*`, the JAX partition), and
+    the parts the JAX models hold fixed by `stop_gradient` only, which run
+    without autograd here: PPMStereo-VDA's Video-Depth-Anything
+    (`backbone.*`), StereoAnyVideo's (`depthnet.depthanything.*`) and
+    BiDAStereo's RAFT (`raft.*`). The JAX optimiser leaves those three in
+    its `train` partition, so its AdamW decays them by lr * wd * p every
+    step though their gradient is zero; the port keeps them bit-equal, as
+    the reference's frozen modules are (ROADMAP §3);
   * each of `train` and `no_decay` clips ITS OWN global gradient norm to
     0.99 (`optax.multi_transform` gives each partition its own
     `clip_by_global_norm`), then AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled
@@ -28,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-FROZEN_PREFIX = "cnet.convnext."
+FROZEN_PREFIXES = ("cnet.convnext.", "backbone.", "depthnet.depthanything.", "raft.")
 NO_DECAY = ("sst.time_embed",)
 WEIGHT_DECAY = 1e-5
 CLIP_NORM = 0.99
@@ -56,7 +64,7 @@ def onecycle_lr(count: int, num_steps: int, lr: float = 3e-4) -> float:
 
 def param_label(name: str) -> str:
     """The optax partition of a parameter: frozen, no_decay or train."""
-    if name.startswith(FROZEN_PREFIX):
+    if name.startswith(FROZEN_PREFIXES):
         return "frozen"
     if name in NO_DECAY:
         return "no_decay"
@@ -134,9 +142,13 @@ class TrainOptimizer:
 
 
 class TrainState:
-    """The model, its optimiser and the number of train steps taken."""
+    """The model, its optimiser, whether the model has an uncertainty head
+    (`build_train_model`'s second output: a model without one returns its
+    predictions alone) and the number of train steps taken."""
 
-    def __init__(self, model: nn.Module, optimizer: TrainOptimizer, step: int = 0):
+    def __init__(self, model: nn.Module, optimizer: TrainOptimizer,
+                 has_uncertainty: bool, step: int = 0):
         self.model = model
         self.optimizer = optimizer
+        self.has_uncertainty = has_uncertainty
         self.step = step

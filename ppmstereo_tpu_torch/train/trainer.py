@@ -1,17 +1,20 @@
 """The one-card training loop (counterpart of ppmstereo_tpu/train/trainer.py
-for PPMStereo on one device in one process): data -> train step ->
-metrics -> checkpoints -> in-training evaluation.
+on one device in one process): data -> train step -> metrics ->
+checkpoints -> in-training evaluation.
 
     state = train(TrainConfig(num_steps=1000), device="cuda")
+    state = train(TrainConfig(model_name="stereoanyvideo"), device="cuda")
 
-The model is `PPMStereoConfig(num_frames=sample_len, mixed_precision=...,
-**model_kwargs)`. A fresh run starts from `utils/init.py`'s initialisation
-(seeded with `cfg.seed`), or from flat flax parameters given as
-`init_params` (e.g. `load_npz("checkpoints/anchor_r5.npz")`) with a fresh
-optimiser; a run whose `exp_dir` holds a checkpoint resumes from it. The
-JAX trainer's mesh (data, sequence and space parallelism; ROADMAP §1 item
-7) and uint8 images on the wire are refused, and the other models of the zoo
-wait for later slices of the port (item 8).
+`model_name` picks one of the JAX trainer's six models (`build_train_model`):
+ppmstereo and memstereo (PPMStereo), ppmstereo_vda (PPMStereo with the
+Video-Depth-Anything features), dynamicstereo, bidastereo and
+stereoanyvideo, each at its config's defaults with `mixed_precision` and
+`model_kwargs` on top. A fresh run starts from `utils/init.py`'s
+initialisation (seeded with `cfg.seed`), or from flat flax parameters given
+as `init_params` (e.g. `load_npz("checkpoints/anchor_r5.npz")`, or an
+import CLI's npz) with a fresh optimiser; a run whose `exp_dir` holds a
+checkpoint resumes from it. The JAX trainer's mesh (data, sequence and space
+parallelism; ROADMAP §1 item 7) and uint8 images on the wire are refused.
 """
 
 from __future__ import annotations
@@ -24,24 +27,28 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ppmstereo_tpu_torch.models.bidastereo import BiDAStereo, BiDAStereoConfig
+from ppmstereo_tpu_torch.models.dynamic_stereo import DynamicStereo, DynamicStereoConfig
 from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
+from ppmstereo_tpu_torch.models.stereoanyvideo import StereoAnyVideo, StereoAnyVideoConfig
 from ppmstereo_tpu_torch.train.checkpoints import CheckpointManager
-from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState
+from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState, param_label
 from ppmstereo_tpu_torch.train.step import to_device, train_step
 from ppmstereo_tpu_torch.utils.device import resolve_device, set_precision
-from ppmstereo_tpu_torch.utils.init import init_ppmstereo
+from ppmstereo_tpu_torch.utils.init import init_model
 from ppmstereo_tpu_torch.utils.logging_utils import MetricsLogger
-from ppmstereo_tpu_torch.utils.weights import load_flax_params, state_dict_to_flax
+from ppmstereo_tpu_torch.utils.weights import load_flax_params, model_to_flax
 
 
 @dataclass
 class TrainConfig:
     """The JAX package's TrainConfig with its defaults (the shipped recipe).
-    model_kwargs: further `PPMStereoConfig` fields (e.g. {"use_cnet":
-    False}). The mesh (data_parallel, seq_parallel, space_parallel: 0 or 1
-    each) and wire_uint8 exist for the JAX package's presets; a mesh above
-    one device or uint8 images raise in `train` (the port ships f32 images
-    to the card, as the JAX package's wire_dtype is omitted)."""
+    model_kwargs: further fields of the model's config (e.g. {"use_cnet":
+    False} for PPMStereo). The mesh (data_parallel, seq_parallel,
+    space_parallel: 0 or 1 each) and wire_uint8 exist for the JAX package's
+    presets; a mesh above one device or uint8 images raise in `train` (the
+    port ships f32 images to the card, as the JAX package's wire_dtype is
+    omitted)."""
 
     model_name: str = "ppmstereo"
     num_steps: int = 200_000
@@ -78,13 +85,35 @@ def check_supported(cfg: TrainConfig) -> None:
                                   "ROADMAP §3)")
 
 
-def build_train_model(cfg: TrainConfig) -> PPMStereo:
-    if cfg.model_name not in ("ppmstereo", "memstereo"):
-        raise ValueError(f"model {cfg.model_name!r}: the port trains PPMStereo only; "
-                         "the rest of the zoo is a later slice (ROADMAP §1 item 8)")
-    mcfg = PPMStereoConfig(num_frames=cfg.sample_len, mixed_precision=cfg.mixed_precision,
-                           **(cfg.model_kwargs or {}))
-    return PPMStereo(mcfg, cfg.train_iters, test_mode=False)
+def build_train_model(cfg: TrainConfig) -> tuple[torch.nn.Module, bool]:
+    """The train-mode model of `cfg.model_name` (the JAX `build_train_model`'s names and
+    config arguments; the time embedding's `num_frames` is the clip length
+    for the three models with an SST) and whether it has an uncertainty
+    head. Unknown names raise."""
+    name, kwargs = cfg.model_name, cfg.model_kwargs or {}
+    precision = {"mixed_precision": cfg.mixed_precision}
+    if name in ("ppmstereo", "memstereo", "ppmstereo_vda"):
+        vfm = {"use_vfm": True} if name == "ppmstereo_vda" else {}
+        mcfg = PPMStereoConfig(num_frames=cfg.sample_len, **precision, **vfm, **kwargs)
+        return PPMStereo(mcfg, cfg.train_iters, test_mode=False), True
+    if name == "dynamicstereo":
+        mcfg = DynamicStereoConfig(num_frames=cfg.sample_len, **precision, **kwargs)
+        return DynamicStereo(mcfg, cfg.train_iters, test_mode=False), False
+    if name == "bidastereo":
+        return BiDAStereo(BiDAStereoConfig(**precision, **kwargs), cfg.train_iters,
+                          test_mode=False), False
+    if name == "stereoanyvideo":
+        return StereoAnyVideo(StereoAnyVideoConfig(**precision, **kwargs), cfg.train_iters,
+                              test_mode=False), False
+    raise ValueError(f"unknown model {name}")
+
+
+# the zoo's name of each trained model, and the models whose evaluation
+# predictor is sized by the training clip (their SST's time embedding)
+ZOO_NAMES = {"ppmstereo": "PPMStereoModel", "memstereo": "PPMStereoModel",
+             "ppmstereo_vda": "PPMStereoVDAModel", "dynamicstereo": "DynamicStereoModel",
+             "bidastereo": "BiDAStereoModel", "stereoanyvideo": "StereoAnyVideoModel"}
+WITH_NUM_FRAMES = ("ppmstereo", "memstereo", "ppmstereo_vda", "dynamicstereo")
 
 
 def build_eval_predictor(cfg: TrainConfig, params: Mapping[str, np.ndarray],
@@ -94,9 +123,11 @@ def build_eval_predictor(cfg: TrainConfig, params: Mapping[str, np.ndarray],
     flat flax `params` (the current ones, for in-training evaluation)."""
     from ppmstereo_tpu_torch.models.zoo import model_zoo
 
-    return model_zoo("PPMStereoModel", kernel_size=kernel_size, iters=eval_iters,
-                     params=params, device=device, num_frames=cfg.sample_len,
-                     mixed_precision=cfg.mixed_precision, **(cfg.model_kwargs or {}))
+    kwargs = dict(mixed_precision=cfg.mixed_precision, **(cfg.model_kwargs or {}))
+    if cfg.model_name in WITH_NUM_FRAMES:
+        kwargs["num_frames"] = cfg.sample_len
+    return model_zoo(ZOO_NAMES[cfg.model_name], kernel_size=kernel_size, iters=eval_iters,
+                     params=params, device=device, **kwargs)
 
 
 def run_in_training_eval(cfg: TrainConfig, params: Mapping[str, np.ndarray], step: int,
@@ -153,12 +184,17 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
         loader = fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
                                   batch_size=cfg.batch_size, num_workers=cfg.num_workers,
                                   seed=cfg.seed)
-    model = build_train_model(cfg)
-    init_ppmstereo(model, cfg.seed)
+    model, has_uncertainty = build_train_model(cfg)
+    init_model(model, cfg.seed)
     model.to(dev)
-    state = TrainState(model, TrainOptimizer(model, num_steps=cfg.num_steps, lr=cfg.lr))
-    n_params = sum(p.numel() for p in model.parameters())
-    logging.info(f"model {cfg.model_name}: {n_params / 1e6:.1f}M params on {dev}")
+    state = TrainState(model, TrainOptimizer(model, num_steps=cfg.num_steps, lr=cfg.lr),
+                       has_uncertainty)
+    counts = {"train": 0, "frozen": 0}
+    for name, p in model.named_parameters():
+        counts["frozen" if param_label(name) == "frozen" else "train"] += p.numel()
+    logging.info(f"model {cfg.model_name}: {counts['train'] / 1e6:.1f}M trainable and "
+                 f"{counts['frozen'] / 1e6:.1f}M frozen params on {dev}, "
+                 f"{'with' if has_uncertainty else 'no'} uncertainty head")
 
     ckpt = CheckpointManager(f"{cfg.exp_dir}/ckpt")
     if ckpt.restore(state):
@@ -187,7 +223,7 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
                 if save_callback is not None:
                     save_callback(state.step, state)
             if enable_eval and state.step % cfg.eval_freq == 0:
-                run_in_training_eval(cfg, state_dict_to_flax(model.state_dict()), state.step,
+                run_in_training_eval(cfg, model_to_flax(model), state.step,
                                      logger, eval_dataset, device=dev)
             if state.step >= limit:
                 break

@@ -146,5 +146,3 @@ def init_model(model: nn.Module, seed: int = 0) -> None:
             if name.endswith(("time_embed", "aggregator.beta")):
                 p.zero_()
 
-
-init_ppmstereo = init_model  # the trainer's and the tests' name

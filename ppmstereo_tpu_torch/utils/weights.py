@@ -115,10 +115,17 @@ def state_dict_to_flax(state: Mapping[str, torch.Tensor],
     return flat
 
 
+def model_to_flax(model: nn.Module) -> dict[str, np.ndarray]:
+    """The model's parameters and buffers as flat flax arrays, its
+    transposed-convolution kernels in flax's layout (the inverse of
+    `load_flax_params`)."""
+    return state_dict_to_flax(model.state_dict(), transposed_kernels(model))
+
+
 def export_npz(model: nn.Module, path: str | Path) -> None:
     """Save the model's parameters as a flat flax npz (f32), the format of
     checkpoints/anchor_r5.npz that `load_npz` and both packages read."""
-    np.savez(path, **state_dict_to_flax(model.state_dict(), transposed_kernels(model)))
+    np.savez(path, **model_to_flax(model))
 
 
 def load_flax_params(model: nn.Module, flat: Mapping[str, np.ndarray]) -> None:

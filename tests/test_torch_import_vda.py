@@ -5,7 +5,8 @@ the JAX CLI's, with the JAX CLI's faults worked around in the test process
 them), and the first of its two VDA faults, the DPT head's transposed
 convolutions converted as Conv2d weights, against the JAX CLI without that
 workaround. Apart from tests/test_torch_import.py because each JAX CLI run
-jits its model's init (45-70 s here).
+traces its model's init (`jax.eval_shape`, 10-20 s here; see
+tests/test_torch_import.py's docstring).
 """
 
 import numpy as np
@@ -32,7 +33,8 @@ def test_jax_cli_converts_transposed_convs_as_conv2d(tmp_path, monkeypatch):
     fails). The port's CLI writes `deconv2d_w` of them; every other array is
     the same."""
     sd, got, want, port_rc, jax_rc = port_and_jax_npz(
-        "StereoAnyVideoModel", tmp_path, monkeypatch, transposed_convs=False)
+        "StereoAnyVideoModel", tmp_path, monkeypatch, init_shapes=True,
+        transposed_convs=False)
     assert port_rc == jax_rc == 0
     resize = {f"depthnet/depthanything/head/resize_{i}/kernel":
               f"depthnet.depthanything.head.resize_layers.{i}.weight" for i in (0, 1)}

@@ -201,13 +201,13 @@ def test_mode_switches_of_the_predictor(anchor):
 def test_zoo_builds_random_weights_from_a_seed_and_loads_params(anchor):
     """params=None initialises from `seed` as utils/init.py does (the JAX
     zoo's random weights); load_params then carries the anchor in."""
-    from ppmstereo_tpu_torch.utils.init import init_ppmstereo
+    from ppmstereo_tpu_torch.utils.init import init_model
 
     flat, _ = anchor
     pred = tmodel_zoo("PPMStereoModel", kernel_size=K, iters=ITERS, params=None, seed=3,
                       device="cpu", mixed_precision=False)
     want = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), ITERS, test_mode=True)
-    init_ppmstereo(want, 3)
+    init_model(want, 3)
     for (name, p), q in zip(pred.model.state_dict().items(), want.state_dict().values()):
         assert torch.equal(p, q), name
     pred.load_params(flat)

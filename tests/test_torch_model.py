@@ -157,7 +157,8 @@ def test_model_of_another_clip_length_loads_the_anchor(anchor):
         td, tu = (x.numpy() for x in tm(torch.from_numpy(left), torch.from_numpy(right)))
     np.testing.assert_allclose(td, jd, rtol=0, atol=DISP_TOL)
     np.testing.assert_allclose(tu, ju, rtol=0, atol=UNC_TOL)
-    train_model = build_train_model(TrainConfig(sample_len=3, train_iters=2))
+    train_model, has_uncertainty = build_train_model(TrainConfig(sample_len=3, train_iters=2))
+    assert has_uncertainty
     load_flax_params(train_model, flat)
     assert tuple(train_model.sst.time_embed.shape) == (1, 5, 256)
 

@@ -5,16 +5,22 @@ uncertainty, and the top-k picks) and train mode, `model_zoo(
 "PPMStereoVDAModel")` against the JAX zoo on a 12-frame clip, and the
 window modes the model cannot run, in f32.
 
-Weights: the JAX package's `jax.jit(init)` parameters carried across
-(tests/torch_config_parity.py: every play blend `beta` 1, the SST time
-embedding drawn), with the backbone's motion modules' `proj_out` drawn
-(zero at init). Input: 64x128 (the JAX zoo's init size; the ConvNeXt
-context net needs heights of a multiple of 32), which the backbone sees at
-56x126.
+Weights: the port's seeded initialisation (`utils/init.py`, the JAX
+initializers' distributions) carried to the JAX model
+(tests/torch_config_parity.py::port_params: every play blend `beta` 1, the
+SST time embedding drawn), with the backbone's motion modules' `proj_out`
+drawn (zero at init); the test of the VFM encoders carries the JAX
+`jax.jit(init)` parameters to the port. Input: 64x128 (the JAX zoo's init
+size; the ConvNeXt context net needs heights of a multiple of 32), which
+the backbone sees at 56x126.
 
 Limits: tests/test_torch_model.py's, 1e-4 px on the disparity and 3e-6 on
 the uncertainty; 1e-5 relative to the largest magnitude on the encoders'
-maps. Each test has a fault reading above its limit.
+maps. The whole model, measured on the CPU on the port's initialisation:
+disparity 1.9e-5 px (test mode), 3.3e-5 px (train mode) and 2.7e-5 px
+(zoo), uncertainty at most 1.1e-6; the faults 0.145, 9.0e-2 and 0.178 px.
+The whole-model tests record both as junit properties. Each test has a
+fault reading above its limit.
 """
 
 import jax
@@ -90,11 +96,11 @@ def test_multilevel_encoder_vfm():
 @pytest.fixture(scope="module")
 def setup():
     left, right = cp.clip(T, H, W, seed=3)
-    tree = draw_proj_out(cp.jax_params(KWARGS, left, right, ITERS), seed=3)
+    tree = draw_proj_out(cp.port_params(KWARGS, T, ITERS, seed=3), seed=3)
     return left, right, tree
 
 
-def test_vda_model_test_mode(setup, monkeypatch):
+def test_vda_model_test_mode(setup, monkeypatch, record_property):
     """Disparity, uncertainty and every iteration's top-k picks; the model
     holds the backbone and the VFM encoder in fnet's place; the fault: the
     plain lookup read one pixel to the right."""
@@ -118,15 +124,18 @@ def test_vda_model_test_mode(setup, monkeypatch):
     for jp, tp in zip(jax_picks, port_picks):
         np.testing.assert_array_equal(tp.numpy(), jp)
     assert td.shape == jd.shape == (1, T, H, W, 1) and np.isfinite(td).all()
+    record_property("max_diff_px", max_diff(td, jd))
+    record_property("max_diff_uncertainty", max_diff(tu, ju))
     np.testing.assert_allclose(td, jd, rtol=0, atol=cp.DISP_TOL)
     np.testing.assert_allclose(tu, ju, rtol=0, atol=cp.UNC_TOL)
     monkeypatch.setattr(tkl, "corr_lookup", lambda pyr, x, radius: corr_lookup(pyr, x + 1.0,
                                                                                 radius))
     fd, _ = cp.run_port(model, left, right)
+    record_property("fault_max_diff_px", max_diff(fd, jd))
     assert np.abs(fd - jd).max() > cp.DISP_TOL
 
 
-def test_vda_model_train_mode(setup, monkeypatch):
+def test_vda_model_train_mode(setup, monkeypatch, record_property):
     """Every iteration's full-resolution prediction and uncertainty (1 + 1 +
     2); the fault: the 1/8 stage fed fnet's averaged 1/4 map in place of
     the VFM encoder's own 1/8 map (the path without use_vfm)."""
@@ -135,6 +144,8 @@ def test_vda_model_train_mode(setup, monkeypatch):
     model = cp.port_model(KWARGS, tree, T, ITERS, test_mode=False)
     tp, tu = cp.run_port(model, left, right)
     assert tp.shape == jp.shape == (4, 1, T, H, W, 1)
+    record_property("max_diff_px", max_diff(tp, jp))
+    record_property("max_diff_uncertainty", max_diff(tu, ju))
     np.testing.assert_allclose(tp, jp, rtol=0, atol=cp.DISP_TOL)
     np.testing.assert_allclose(tu, ju, rtol=0, atol=cp.UNC_TOL)
     vfm_features = tppm.PPMStereo._vfm_features
@@ -146,10 +157,11 @@ def test_vda_model_train_mode(setup, monkeypatch):
 
     monkeypatch.setattr(tppm.PPMStereo, "_vfm_features", averaged_f8)
     fp, _ = cp.run_port(model, left, right)
+    record_property("fault_max_diff_px", max_diff(fp, jp))
     assert np.abs(fp - jp).max() > cp.DISP_TOL
 
 
-def test_zoo_matches_jax_zoo(setup, monkeypatch):
+def test_zoo_matches_jax_zoo(setup, monkeypatch, record_property):
     """A 12-frame clip through both zoos (window 6, the shipped top_k 5:
     three strict windows), disparity and uncertainty."""
     _, _, tree = setup
@@ -162,11 +174,16 @@ def test_zoo_matches_jax_zoo(setup, monkeypatch):
     got = pred({"stereo_video": video})
     assert sorted(got) == sorted(want) == ["disparity", "uncertainties"]
     assert got["disparity"].shape == want["disparity"].shape == (12, H, W, 1)
+    record_property("max_diff_px", max_diff(got["disparity"], want["disparity"]))
+    record_property("max_diff_uncertainty",
+                    max_diff(got["uncertainties"], want["uncertainties"]))
     assert max_diff(got["disparity"], want["disparity"]) <= cp.DISP_TOL
     assert max_diff(got["uncertainties"], want["uncertainties"]) <= cp.UNC_TOL
     monkeypatch.setattr(tkl, "corr_lookup", lambda pyr, x, radius: corr_lookup(pyr, x + 1.0,
                                                                                 radius))
-    assert max_diff(pred({"stereo_video": video})["disparity"], want["disparity"]) > cp.DISP_TOL
+    fault = max_diff(pred({"stereo_video": video})["disparity"], want["disparity"])
+    record_property("fault_max_diff_px", fault)
+    assert fault > cp.DISP_TOL
 
 
 def test_refused_window_modes(setup):

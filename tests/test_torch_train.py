@@ -21,7 +21,6 @@ with a wrong backward (dk doubled) 8.4e-3. The limit, 2.5e-3, sits between
 them, ~3.5x from each.
 """
 
-import json
 from pathlib import Path
 
 import jax
@@ -44,6 +43,7 @@ from ppmstereo_tpu_torch.train import state as tstate
 from ppmstereo_tpu_torch.train import trainer as ttrainer
 from ppmstereo_tpu_torch.utils import init as tinit
 from ppmstereo_tpu_torch.utils import weights as tweights
+from tests.torch_train_parity import tiny_cli_run
 
 torch.set_num_threads(2)
 ANCHOR = Path(__file__).resolve().parent.parent / "checkpoints" / "anchor_r5.npz"
@@ -182,7 +182,7 @@ def test_init_follows_the_jax_initializers(jax_init):
     within 10 % of JAX's; tensors JAX initialises to a constant (zeros,
     ones) are that constant."""
     model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=1)
-    tinit.init_ppmstereo(model, seed=0)
+    tinit.init_model(model, seed=0)
     got = tweights.state_dict_to_flax(model.state_dict())
     assert set(got) == set(jax_init)
     checked = 0
@@ -280,7 +280,7 @@ def test_train_mode_reuses_the_forward_picks_in_the_recomputation(anchor, monkey
 # ------------------------------------------------ checkpoints and export
 def test_checkpoint_save_and_resume_round_trip(rng, tmp_path):
     model = _Tiny(rng)
-    state = tstate.TrainState(model, tstate.TrainOptimizer(model, num_steps=100))
+    state = tstate.TrainState(model, tstate.TrainOptimizer(model, num_steps=100), True)
     for p in (model.head.w, model.head.b, model.sst.time_embed):
         p.grad = torch.ones_like(p)
     state.optimizer.step()
@@ -291,7 +291,7 @@ def test_checkpoint_save_and_resume_round_trip(rng, tmp_path):
     mgr.save(state)
 
     other = _Tiny(np.random.default_rng(1))
-    restored = tstate.TrainState(other, tstate.TrainOptimizer(other, num_steps=100))
+    restored = tstate.TrainState(other, tstate.TrainOptimizer(other, num_steps=100), True)
     assert mgr.restore(restored)
     assert restored.step == 2
     for (name, a), b in zip(model.state_dict().items(), other.state_dict().values()):
@@ -313,7 +313,7 @@ def test_npz_export_round_trip(anchor, tmp_path):
     readable back into the port (and by both packages' load_npz)."""
     flat, _ = anchor
     model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False), iters=1)
-    tinit.init_ppmstereo(model, seed=3)
+    tinit.init_model(model, seed=3)
     tweights.export_npz(model, tmp_path / "export.npz")
     exported = tweights.load_npz(tmp_path / "export.npz")
     assert {k: v.shape for k, v in exported.items()} == {k: v.shape for k, v in flat.items()}
@@ -335,26 +335,13 @@ def test_trainer_and_cli_require_a_card_unless_asked_for_the_cpu():
         ttrainer.train(ttrainer.TrainConfig(num_steps=1))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["--num_steps", "1"])
-    with pytest.raises(ValueError, match="PPMStereo only"):
-        ttrainer.train(ttrainer.TrainConfig(model_name="bidastereo"), device="cpu")
+    with pytest.raises(ValueError, match="unknown model raftstereo"):
+        ttrainer.train(ttrainer.TrainConfig(model_name="raftstereo"), device="cpu")
 
 
 def test_cli_tiny_run_on_the_cpu_and_resume(tmp_path):
-    """The README's tiny CPU run: 2 steps, metrics every step, a checkpoint;
-    a second call with 3 steps resumes from it and takes one more. In f32:
-    PyTorch's bf16 convolutions on the CPU are far slower (minutes a step
-    with 2 threads)."""
-    args = ["--device", "cpu", "--image_size", "64", "128", "--sample_len", "3",
-            "--train_iters", "1", "--num_workers", "1", "--no_mixed_precision",
-            "--ckpt_path", str(tmp_path), "log_freq=1"]
-    state = tcli.main(args + ["--num_steps", "2"])
-    assert state.step == 2 and state.optimizer.count == 2
-    assert tckpt.CheckpointManager(tmp_path / "ckpt").steps() == [2]
-    state = tcli.main(args + ["--num_steps", "3"])
-    assert state.step == 3
-    records = [json.loads(line) for line in (tmp_path / "metrics.jsonl").read_text().splitlines()]
-    assert [r["step"] for r in records] == [1, 2, 3]
-    assert all(np.isfinite(r["loss"]) and r["steps_per_s"] > 0 for r in records)
+    """The README's tiny CPU run (`tiny_cli_run`) of PPMStereo."""
+    tiny_cli_run("ppmstereo", tmp_path)
 
 
 def test_trainer_raises_when_the_loader_runs_dry(tmp_path):

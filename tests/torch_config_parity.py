@@ -4,10 +4,11 @@ tests/test_torch_config_*.py: one configuration through the JAX package's
 across, on one seeded synthetic clip, in f32.
 
 The parameters are the JAX package's initialisation of that configuration
-(`jax.jit(init)`; the port loads them strictly, so its parameter set is the
-JAX model's), with every play blend `beta` set to 1 and the SST time
-embedding drawn from a normal of std 0.5: at initialisation both are zero,
-and the play step and the time embedding would not reach the output.
+(`jax_params`: `jax.jit(init)`; the port loads them strictly, so its
+parameter set is the JAX model's) or the port's (`port_params`), with every
+play blend `beta` set to 1 and the SST time embedding drawn from a normal
+of std 0.5: at initialisation both are zero, and the play step and the
+time embedding would not reach the output.
 """
 
 import jax
@@ -20,6 +21,7 @@ from ppmstereo_tpu.models.ppm_stereo import PPMStereoConfig as JConfig
 from ppmstereo_tpu_torch.models import ppm_stereo as tppm
 from ppmstereo_tpu_torch.utils.weights import flatten_params, load_flax_params
 from tests.torch_parity_data import synthetic_clip
+from tests.torch_zoo_parity import port_init_tree
 
 # tests/test_torch_model.py's limits (its docstring gives the measurements
 # they rest on): the play step rounds q/k/v to bf16 in both packages, so an
@@ -53,7 +55,22 @@ def jax_params(cfg_kwargs: dict, left, right, iters: int, seed: int = 0) -> dict
                     iters=iters, test_mode=True)
     tree = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
         jax.random.PRNGKey(seed), jnp.asarray(left), jnp.asarray(right)))
-    tree = jax.tree_util.tree_map(np.array, tree)  # writable copies
+    return reach_the_output(jax.tree_util.tree_map(np.array, tree), seed)  # writable copies
+
+
+def port_params(cfg_kwargs: dict, frames: int, iters: int, seed: int = 0) -> dict:
+    """The port's initialisation of the configuration
+    (tests/torch_zoo_parity.py::port_init_tree), with every `beta` 1 and
+    the time embedding drawn: the tree of `jax_params` but for the
+    initialiser's draws."""
+    model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False, num_frames=frames,
+                                                **cfg_kwargs), iters=iters, test_mode=True)
+    return reach_the_output(port_init_tree(model, seed), seed)
+
+
+def reach_the_output(tree: dict, seed: int) -> dict:
+    """Every play blend `beta` 1 and the SST time embedding drawn (see the
+    module docstring), in place."""
     rng = np.random.default_rng(seed)
     for name in ("update_block16", "update_block08", "update_block04"):
         tree["params"][name]["update_block"]["aggregator"]["beta"][:] = 1.0

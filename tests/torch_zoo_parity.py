@@ -1,8 +1,9 @@
 """Helpers of the baselines' parity tests (tests/test_torch_dynamic_stereo.py,
 test_torch_raft.py, test_torch_raft_stereo.py, test_torch_bidastereo.py,
 test_torch_import.py): the JAX package's `jax.jit(init)` parameters as a
-writable numpy tree, with the leaves that start at zero drawn, and the
-port's module with those parameters carried across.
+writable numpy tree (or the port's own initialisation as such a tree,
+`port_init_tree`), with the leaves that start at zero drawn, and the port's
+module with those parameters carried across.
 
 The JAX models' initialisers set some leaves to zero (the SST time
 embedding, the temporal attention's output projection `temporal_fc`); with
@@ -16,7 +17,13 @@ import jax.numpy as jnp
 import numpy as np
 import torch
 
-from ppmstereo_tpu_torch.utils.weights import flatten_params, load_flax_params
+from ppmstereo_tpu_torch.utils.init import init_model
+from ppmstereo_tpu_torch.utils.weights import (
+    flatten_params,
+    load_flax_params,
+    state_dict_to_flax,
+    transposed_kernels,
+)
 from tests.torch_parity_data import synthetic_clip
 
 DISP_TOL = 1e-4  # px, as tests/test_torch_model.py
@@ -29,6 +36,23 @@ def jax_init(module, *inputs, seed: int = 0, method=None) -> dict:
     init = jax.jit(lambda key, *a: module.init(key, *a, method=method))
     tree = init(jax.random.PRNGKey(seed), *args)
     return jax.tree_util.tree_map(lambda x: np.array(x, dtype=np.float32), tree)
+
+
+def port_init_tree(module: torch.nn.Module, seed: int = 0) -> dict:
+    """The port's `init_model(seed)` of `module` (the JAX initializers'
+    distributions, utils/init.py) as a writable {"params": ...} numpy tree
+    for the JAX module: a `jax.jit(init)` would compile the JAX model's
+    forward once more (30-100 s here) for parameters of the same
+    distributions."""
+    init_model(module, seed)
+    tree: dict = {}
+    for path, v in state_dict_to_flax(module.state_dict(), transposed_kernels(module)).items():
+        node = tree
+        *parents, leaf = path.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
 
 
 def draw_zero_leaves(tree: dict, seed: int = 0, std: float = 0.1) -> dict:
