@@ -119,6 +119,17 @@ it stopped):
                unsharded play on the same inputs; and the small clip in f32 through the ring against
                the card's single-process output; a dropped carry as the
                fault of both
+  7d. data     the mesh's data axis in 2 processes on the one card (gloo,
+               host-staged), each piece against the same work in this
+               process: 3 train steps at TrainConfig() on one batch of 2
+               (one clip a rank; losses, per-step seconds, the gradient
+               all-reduce's bytes and seconds, kernels 2-4 per rank and
+               step, the ranks' parameters bit-equal after every step), an
+               f32 step of the train small parity's clip at batch 2 at the
+               train limits, the main path's clip through
+               model_zoo(batch_windows=2, mesh) (kernels 1 and 6 per rank,
+               the strict modes' limits), and evaluate_distributed on three
+               sequences of unequal length
   8. train     training: `train()` at the shipped TrainConfig() (320x512,
                5 frames, batch 2, 10 iterations, bf16) from the anchor, 4
                steps on one batch of the synthetic fallback, then 2 on fresh
@@ -1104,11 +1115,14 @@ def grad_agreement(got: dict, want: dict, encoders: tuple = ()) -> dict:
     return worst
 
 
-def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
+def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None, mesh=None):
     """One train_step of a fresh f32 PPMStereo (2 iterations) from `flat`
-    on `dev`: (loss, gradients, parameters after the update, optimiser),
-    the tensors on the CPU. `doubled` (0, 1, 2): a wrong backward, with the
-    play attention's dq, dk or dv doubled."""
+    on `dev`: (loss, the gradients the optimiser reads, parameters after
+    the update, optimiser), the tensors on the CPU. `doubled` (0, 1, 2): a
+    wrong backward, with the play attention's dq, dk or dv doubled. With a
+    `mesh`, `batch` is this rank's block and the step is data-parallel
+    over the mesh's data axis (the loss the global batch's, the gradients
+    summed)."""
     import torch
 
     from ppmstereo_tpu_torch.kernels import play_attention as pa
@@ -1117,14 +1131,23 @@ def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
     from ppmstereo_tpu_torch.train.step import to_device, train_step
     from ppmstereo_tpu_torch.utils.weights import load_flax_params
 
-    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=2, test_mode=False)
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=2, test_mode=False,
+                      mesh=mesh)
     load_flax_params(model, flat)
     model.to(dev)
-    state = TrainState(model, TrainOptimizer(model, num_steps=1000), True)
+    state = TrainState(model, TrainOptimizer(model, num_steps=1000), True,
+                       data_group=None if mesh is None else mesh.groups["data"])
     grads = {}
-    hooks = [p.register_post_accumulate_grad_hook(
-        lambda p, n=n: grads.__setitem__(n, p.grad.detach().float().cpu().clone()))
-        for n, p in model.named_parameters() if p.requires_grad]
+    names = {id(p): n for n, p in model.named_parameters()}
+    optimizer_step = state.optimizer.step
+
+    def read_then_step():  # the gradients the optimiser reads (summed over a mesh)
+        for g, p in zip(state.optimizer.gradients(),
+                        (p for group in state.optimizer.groups for p in group)):
+            grads[names[id(p)]] = g.detach().float().cpu().clone()
+        return optimizer_step()
+
+    state.optimizer.step = read_then_step
     # the wrong backward doubles one gradient in the backward that `dev`
     # runs: the card's kernels or the CPU's plain version
     backward = pa.play_attention_bwd_plain if dev == "cpu" else pa.play_attention_bwd
@@ -1136,8 +1159,6 @@ def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None):
         loss = float(metrics["loss"])
     finally:
         setattr(pa, backward.__name__, backward)
-        for h in hooks:
-            h.remove()
     params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
     return loss, grads, params, state.optimizer
 
@@ -1623,6 +1644,365 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
                 launches=readings[0]["counts"]["play_attention_carry"],
                 carry_window_ms=readings[0]["carry_window"]["device_ms"],
                 lookup_launches=readings[0]["counts"]["corr_lookup"])
+
+
+# the data phase: the mesh's data axis over DATA_RANKS processes sharing the
+# card (gloo, staged through pinned host buffers), as the ring phase runs:
+# DATA_TRAIN_STEPS train steps at TrainConfig() with batch 2 (one clip a
+# rank) on one fixed batch, the main path's clip through model_zoo with
+# batch_windows=2 (each rank runs one window of a pair), and
+# evaluate_distributed on DATA_EVAL_FRAMES-frame sequences; each against the
+# same work in one process (this one)
+DATA_RANKS = 2
+DATA_TIMEOUT_S = 600
+DATA_TRAIN_STEPS = 3
+DATA_DIR = REPO / "build" / "chip_smoke_data"
+DATA_EVAL_FRAMES = (10, 7, 4)  # three sequences of unequal length, seeds 1-3
+# per rank: the batch's first pair splits over the ranks, the third and the
+# tail window run whole on each (window_frames: 10, 10, 10, 5)
+DATA_WINDOWS_PER_RANK = 3
+DATA_EVAL_TOL = 1e-6  # relative: the same windows in other processes
+# The train path is held twice. The f32 small step (the train small
+# parity's anchor, 2 iterations, 3 frames at 64x128, here a batch of 2:
+# one clip a rank) against this process's f32 step on the card, at the
+# train phase's limits (TRAIN_*: loss, tensor and one-element gradients,
+# updated elements). TrainConfig() in bf16 cannot be held there: one clip a
+# call is not two to the libraries (other algorithms, other last bits), and
+# in bf16 that grows through 30 iterations. On an H100 (NVIDIA H100 80GB
+# HBM3, 700.00 W) the 2-rank bf16 losses read 1.25e-4 / 3.10e-4 / 2.31e-3
+# of one process's at steps 1-3 and the gradients after step 1 parted
+# by a norm ratio of 0.84 (a first convolution's bias, whose true gradient
+# is ~0) and 0.15 (the 1/16 play blend). So at TrainConfig() the losses are
+# held to DATA_BF16_LOSS_TOL (4x the largest reading: a loss that is not
+# the global batch's, a rank's share or its own mean, is off by 10-50 %)
+# and the gradients are printed; the ranks' parameters must stay bit-equal.
+DATA_BF16_LOSS_TOL = 1e-2
+DATA_SMALL = (2, 3, 64, 128)  # clips, frames, height, width of the f32 step
+
+
+def _digest(tensors) -> str:
+    """A hash of the tensors' bytes (bit-equality across processes)."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.blake2b(digest_size=16)
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().view(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+@contextmanager
+def _recorded_training(record: dict):
+    """Patch the trainer for one `train()` run: each train step timed under
+    torch.cuda.synchronize() with its kernel launches, the trainable
+    parameters hashed after it, the gradient all-reduce timed with its
+    bytes, and the gradients the optimiser reads at the first step kept
+    (`record["grads"]`, by parameter name, on the CPU)."""
+    import torch
+
+    from ppmstereo_tpu_torch.train import step as step_module
+    from ppmstereo_tpu_torch.train import trainer
+    from ppmstereo_tpu_torch.train.state import TrainOptimizer
+
+    record.update(step_s=[], launches=[], digests=[], allreduce_s=[], allreduce_bytes=[])
+    train_step, reduce, opt_step = (trainer.train_step, step_module.all_reduce_gradients,
+                                    TrainOptimizer.step)
+    build = trainer.build_train_model
+    names = {}
+
+    def built(*args, **kwargs):
+        model, has_unc = build(*args, **kwargs)
+        names.update({id(p): n for n, p in model.named_parameters()})
+        return model, has_unc
+
+    def timed_step(state, batch):
+        torch.cuda.synchronize()
+        before, t0 = _launch_counts(), time.perf_counter()
+        out = train_step(state, batch)
+        torch.cuda.synchronize()
+        record["step_s"].append(time.perf_counter() - t0)
+        after = _launch_counts()
+        record["launches"].append({k: after[k] - before[k] for k in after})
+        record["digests"].append(_digest(p for g in state.optimizer.groups for p in g))
+        return out
+
+    def timed_reduce(state):
+        torch.cuda.synchronize()
+        n, t0 = step_module.REDUCED["bytes"], time.perf_counter()
+        reduce(state)
+        torch.cuda.synchronize()
+        record["allreduce_s"].append(time.perf_counter() - t0)
+        record["allreduce_bytes"].append(step_module.REDUCED["bytes"] - n)
+
+    def first_grads(self):
+        if "grads" not in record:
+            record["grads"] = {names[id(p)]: p.grad.detach().float().cpu().clone()
+                               for g in self.groups for p in g if p.grad is not None}
+        return opt_step(self)
+
+    trainer.build_train_model, trainer.train_step = built, timed_step
+    step_module.all_reduce_gradients, TrainOptimizer.step = timed_reduce, first_grads
+    try:
+        yield
+    finally:
+        trainer.build_train_model, trainer.train_step = build, train_step
+        step_module.all_reduce_gradients, TrainOptimizer.step = reduce, opt_step
+
+
+def _data_train(out_dir: Path, batch: dict) -> dict:
+    """train() at TrainConfig() from the anchor, DATA_TRAIN_STEPS steps on the
+    global `batch` (each rank takes its block in a group); returns the
+    recorded steps and the losses of the run's metrics log (rank 0's, None
+    on the other ranks). `out_dir` must not exist yet: the caller clears
+    it, and deletes it after the run (every rank of a group uses it)."""
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    cfg = TrainConfig(exp_dir=str(out_dir), log_freq=1)
+    record: dict = {}
+    with _recorded_training(record):
+        train(cfg, loader=[batch] * DATA_TRAIN_STEPS, max_steps=DATA_TRAIN_STEPS,
+              init_params=load_npz(ANCHOR), device="cuda")
+    log_path = out_dir / "metrics.jsonl"
+    record["losses"] = ([json.loads(x)["loss"] for x in log_path.read_text().splitlines()]
+                        if log_path.is_file() else None)
+    return record
+
+
+def _eval_sequences() -> list:
+    """Synthetic sequences at the main path's size, with ground truth."""
+    import numpy as np
+
+    out = []
+    for seed, frames in enumerate(DATA_EVAL_FRAMES, start=1):
+        video, gt = synthetic_clip(frames, HEIGHT, WIDTH, seed=seed)
+        out.append({"img": video, "disp": -gt[:, None, :, :, None],
+                    "valid": np.ones((frames, 1, HEIGHT, WIDTH), np.float32)})
+    return out
+
+
+def _small_batch() -> dict:
+    """DATA_SMALL's batch: the synthetic dataset's clips of seeds 0, 1, ..."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
+
+    n, frames, h, w = DATA_SMALL
+    samples = [SyntheticStereoDataset(num_seqs=1, sample_len=frames, height=h, width=w,
+                                      seed=seed)[0] for seed in range(n)]
+    return {"left": np.stack([s["img"][:, 0] for s in samples]),
+            "right": np.stack([s["img"][:, 1] for s in samples]),
+            "disparity": np.stack([s["disp"][:, 0] for s in samples]),
+            "valid": np.stack([s["valid"][:, 0] for s in samples])}
+
+
+def _small_step_against(ref_path: str, mesh, rank: int, world: int) -> dict:
+    """The f32 small step over the mesh's data axis (this rank's block of
+    the batch) against the one-process step saved at `ref_path`."""
+    import torch
+
+    from ppmstereo_tpu_torch.parallel.sharding import local_batch
+    from ppmstereo_tpu_torch.train.state import onecycle_lr
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    loss, grads, params, opt = _one_train_step("cuda", load_npz(ANCHOR),
+                                               local_batch(_small_batch(), rank, world),
+                                               mesh=mesh)
+    ref = torch.load(ref_path, weights_only=True)
+    lr0 = onecycle_lr(0, opt.num_steps, opt.lr)
+    n_off = sum(int(((params[n] - p).abs() > lr0 / 2).sum()) for n, p in ref["params"].items())
+    return dict(loss_rel=abs(loss - ref["loss"]) / abs(ref["loss"]),
+                grad=grad_agreement(grads, ref["grads"]),
+                update_off=n_off / sum(p.numel() for p in ref["params"].values()))
+
+
+def _data_child(rank: int, world: int, batch: dict, video, sequences, ref_grads_path: str,
+                small_ref_path: str):
+    """One process of the data phase: the train steps (their gradients after
+    step 1 read against the one-process run's here), the f32 small step,
+    the clip through model_zoo(batch_windows=2, mesh), and
+    evaluate_distributed."""
+    from datetime import timedelta
+
+    import torch
+
+    from ppmstereo_tpu_torch.evaluation.distributed import evaluate_distributed
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.parallel.collectives import host_staged
+    from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    torch.cuda.set_device(0)
+    for fn in (pa.play_attention, pa.play_attention_fwd_res, pa.play_attention_bwd_dq,
+               pa.play_attention_bwd_dkv, kl.corr_lookup_kernel):
+        fn.launches = 0
+    train_run = _data_train(DATA_DIR / "dp", batch)
+    want = torch.load(ref_grads_path, weights_only=True)
+    got = train_run.pop("grads")
+    train_run["grad"] = grad_agreement(got, want)
+    train_run["grad_names"] = sorted(got) == sorted(want)
+    del got, want
+
+    mesh = make_mesh(MeshSpec(data=world), timeout=timedelta(seconds=DATA_TIMEOUT_S))
+    small = _small_step_against(small_ref_path, mesh, rank, world)
+    params = load_npz(ANCHOR)
+    pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params,
+                     batch_windows=2, mesh=mesh)
+    pred({"stereo_video": video})  # warm
+    window_s: list = []
+    window_fn = _timed_windows(pred, window_s)
+    pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    disp = pred({"stereo_video": video})["disparity"]
+    seconds = time.perf_counter() - t0
+    pred.predictor.window_fn = window_fn
+    windows = dict(disparity=disp, window_s=window_s, seconds=seconds,
+                   play=pa.play_attention.launches, lookup=kl.corr_lookup_kernel.launches,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del pred
+
+    plain = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params)
+    t0 = time.perf_counter()
+    metrics = evaluate_distributed(None, plain, sequences)
+    return dict(train=train_run, small=small, windows=windows, eval=metrics,
+                eval_s=time.perf_counter() - t0,
+                staged=host_staged(mesh.groups["data"], torch.device("cuda")))
+
+
+def phase_data(smi: str) -> dict:
+    """The mesh's data axis over DATA_RANKS processes on the one card (gloo,
+    host-staged): train steps, windows and evaluation, each against the same
+    work in this process. Every failure raises."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
+    from ppmstereo_tpu_torch.evaluation.evaluator import Evaluator
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.parallel.launch import run_group
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(DATA_DIR, ignore_errors=True)
+    cfg = TrainConfig()
+    batch = next(iter(fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
+                                       batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                                       seed=cfg.seed)))
+    one = _data_train(DATA_DIR / "one", batch)
+    shutil.rmtree(DATA_DIR / "one" / "ckpt")  # ~780 MB
+    ref_grads = DATA_DIR / "ref_grads.pt"
+    torch.save(one.pop("grads"), ref_grads)
+    small_loss, small_grads, small_params, _ = _one_train_step("cuda", load_npz(ANCHOR),
+                                                               _small_batch())
+    small_ref = DATA_DIR / "small_ref.pt"
+    torch.save({"loss": small_loss, "grads": small_grads, "params": small_params}, small_ref)
+    del small_grads, small_params
+    video, gt = synthetic_clip(CLIP_FRAMES, HEIGHT, WIDTH, seed=0)
+    params = load_npz(ANCHOR)
+    pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params,
+                     batch_windows=2)
+    ref = pred({"stereo_video": video})["disparity"]
+    sequences = _eval_sequences()
+    plain = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params)
+    want_eval = Evaluator().evaluate_sequence(plain, sequences)["aggregate"]
+    del pred, plain
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    results = run_group(_data_child, DATA_RANKS, (batch, video, sequences, str(ref_grads),
+                                                   str(small_ref)),
+                        timeout_s=DATA_TIMEOUT_S, threads=4)
+    wall_s = time.perf_counter() - t0
+    ref_epe = float(np.abs(ref[..., 0] - gt).mean())
+    losses = [json.loads(x)["loss"]
+              for x in (DATA_DIR / "dp" / "metrics.jsonl").read_text().splitlines()]
+    shutil.rmtree(DATA_DIR, ignore_errors=True)  # rank 0's checkpoint: ~780 MB
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    log(f"data phase: {DATA_RANKS} processes sharing one card ({smi}) over gloo, "
+        f"{'host-staged' if results[0]['staged'] else 'device'}; these times are time-sharing, "
+        f"not a scaling result. One process: train steps "
+        f"{[round(x, 3) for x in one['step_s']]} s, losses {one['losses']}")
+    log(f"data train, TrainConfig() at batch {cfg.batch_size} ({cfg.batch_size // DATA_RANKS} "
+        f"clip a rank), {DATA_TRAIN_STEPS} steps on one batch: global losses {losses}, against "
+        f"one process {[f'{x:.2e}' for x in loss_rel]} relative (tol {DATA_BF16_LOSS_TOL})")
+    readings = []
+    for rank, res in enumerate(results):
+        tr, win = res["train"], res["windows"]
+        grad = tr["grad"]
+        diff = np.abs(win["disparity"] - ref)
+        epe = float(np.abs(win["disparity"][..., 0] - gt).mean())
+        eval_rel = {k: abs(res["eval"][k] - v) / max(abs(v), 1e-12) for k, v in want_eval.items()
+                    if k not in ("fps", "num_sequences")}
+        r = dict(rank=rank, step_s=tr["step_s"], launches=tr["launches"],
+                 allreduce_s=tr["allreduce_s"], allreduce_bytes=tr["allreduce_bytes"],
+                 grad=grad, small=res["small"], window_s=win["window_s"],
+                 windows_s=win["seconds"],
+                 play=win["play"], lookup=win["lookup"], peak_gb=win["peak_gb"],
+                 mean_abs_diff=float(diff.mean()), max_abs_diff=float(diff.max()), epe=epe,
+                 epe_diff=abs(epe - ref_epe), eval_worst=max(eval_rel.values()),
+                 eval_s=res["eval_s"], total_frames=res["eval"].get("total_frames"))
+        readings.append(r)
+        log(f"data rank {rank}: train seconds per step {[round(x, 3) for x in tr['step_s']]}; "
+            f"gradient all-reduce per step {[round(x, 4) for x in tr['allreduce_s']]} s for "
+            f"{tr['allreduce_bytes'][0] / 1e6:.1f} MB; launches per step {tr['launches'][0]} "
+            f"(expected {TRAIN_LAUNCHES_PER_STEP}); bf16 gradients after step 1 against one "
+            f"process (read, not held): tensors {grad['tensor'][0]:.3e} ({grad['tensor'][1]}), "
+            f"one-element {grad['scalar'][0]:.3e} ({grad['scalar'][1]})")
+        sm = res["small"]
+        log(f"data rank {rank}: f32 step {DATA_SMALL} against one process on the card: loss "
+            f"{sm['loss_rel']:.2e} relative (tol {TRAIN_LOSS_TOL}); gradients: tensors "
+            f"{sm['grad']['tensor'][0]:.3e} ({sm['grad']['tensor'][1]}; tol {TRAIN_GRAD_TOL}), "
+            f"one-element {sm['grad']['scalar'][0]:.3e} ({sm['grad']['scalar'][1]}; tol "
+            f"{TRAIN_SCALAR_GRAD_TOL}); {sm['update_off']:.2e} of the updated elements off by "
+            f"more than lr/2 (tol {TRAIN_UPDATE_TOL})")
+        log(f"data rank {rank}: windows (batch_windows=2) {[round(x, 3) for x in win['window_s']]}"
+            f" s, {win['seconds']:.3f} s for the clip, kernel 1 launches {win['play']} and "
+            f"kernel 6 {win['lookup']} (expected {DATA_WINDOWS_PER_RANK * LAUNCHES_PER_WINDOW} "
+            f"each), peak {win['peak_gb']:.2f} GB; against one process: mean |diff| "
+            f"{r['mean_abs_diff']:.3e} px (tol {STRICT_MEAN_TOL}), max {r['max_abs_diff']:.3e} px, "
+            f"EPE {epe:.4f} px (one process {ref_epe:.4f}; tol {STRICT_EPE_TOL}); "
+            f"evaluate_distributed over {DATA_EVAL_FRAMES} frames in {res['eval_s']:.2f} s: "
+            f"metrics against one process's evaluator at worst {r['eval_worst']:.2e} relative "
+            f"(tol {DATA_EVAL_TOL})")
+    log(f"data phase: {time.perf_counter() - t_phase:.1f} s ({t_ref:.1f} s of one-process "
+        f"references, {wall_s:.1f} s for the group with process start)")
+
+    if not all(res["staged"] for res in results):
+        raise RuntimeError("the data phase expects a gloo group staged through the host")
+    if len(losses) != DATA_TRAIN_STEPS or not all(r <= DATA_BF16_LOSS_TOL for r in loss_rel):
+        raise RuntimeError(f"data-parallel losses {losses} against one process's "
+                           f"{one['losses']}")
+    for r, res in zip(readings, results):
+        tr = res["train"]
+        if tr["digests"] != results[0]["train"]["digests"]:
+            raise RuntimeError(f"data rank {r['rank']}: parameters differ from rank 0's")
+        if any(step != TRAIN_LAUNCHES_PER_STEP for step in r["launches"]):
+            raise RuntimeError(f"data rank {r['rank']}: launches per step {r['launches']}")
+        sm = res["small"]
+        if not (tr["grad_names"] and sm["loss_rel"] <= TRAIN_LOSS_TOL
+                and sm["grad"]["tensor"][0] <= TRAIN_GRAD_TOL
+                and sm["grad"]["scalar"][0] <= TRAIN_SCALAR_GRAD_TOL
+                and sm["update_off"] <= TRAIN_UPDATE_TOL):
+            raise RuntimeError(f"data rank {r['rank']}: the f32 step against one process {sm}")
+        want_launches = DATA_WINDOWS_PER_RANK * LAUNCHES_PER_WINDOW
+        if r["play"] != want_launches or r["lookup"] != want_launches:
+            raise RuntimeError(f"data rank {r['rank']}: kernel 1 / 6 launches {r['play']} / "
+                               f"{r['lookup']}, expected {want_launches}")
+        if not (r["mean_abs_diff"] <= STRICT_MEAN_TOL and r["epe_diff"] <= STRICT_EPE_TOL):
+            raise RuntimeError(f"data rank {r['rank']}: windows differ from one process's")
+        if not r["eval_worst"] <= DATA_EVAL_TOL:
+            raise RuntimeError(f"data rank {r['rank']}: evaluate_distributed {res['eval']} "
+                               f"against {want_eval}")
+    return dict(readings=readings, one=one, losses=losses, loss_rel=loss_rel, wall_s=wall_s,
+                launches={k: sum(step[k] for step in readings[0]["launches"])
+                          for k in readings[0]["launches"][0]},
+                play_launches=readings[0]["play"], lookup_launches=readings[0]["lookup"])
 
 
 # kernel-name fragments -> the layer that launches them
@@ -3275,8 +3655,6 @@ def _zoo_small_step(name: str, dev: str, flat, batch: dict, mixed_precision: boo
         loss = float(metrics["loss"])
     finally:
         setattr(pa, backward.__name__, backward)
-        for h in hooks:
-            h.remove()
     params = {n: p.detach().float().cpu() for n, p in model.named_parameters()}
     return loss, grads, params, state.optimizer
 
@@ -3696,6 +4074,8 @@ def main() -> None:
         eval_run = phase_eval(smi)
     with phase("ring"):
         ring_run = phase_ring(main_run, small_run, smi)
+    with phase("data"):
+        data_run = phase_data(smi)
     with phase("train"):
         train_run = phase_train(smi)
         train_run["recipe"] = phase_train_recipe(smi)
@@ -3709,18 +4089,21 @@ def main() -> None:
     # ring path's run (rank 0);
     # kernel 6 on the inference path's, the VDA family's and the ring path's
     # runs (rank 0; test mode), summed with the training path's (0: train
-    # mode runs the plain lookup). Each path is driven with its counts set
-    # to 0 just before. Kernels 1 and 6 in the modes and eval paths' runs
-    # sit beside them.
+    # mode runs the plain lookup); the data path's rank 0 (its windows for
+    # kernels 1 and 6, its train steps for kernels 2-4) adds to each. Each
+    # path is driven with its counts set to 0 just before. Kernels 1 and 6
+    # in the modes and eval paths' runs sit beside them.
     vda_play = sum(run["play_launches"] for run in vda_run.values())
     vda_lookup = sum(run["lookup_launches"] for run in vda_run.values())
     lookup = (main_run["lookup_launches"] + vda_lookup + ring_run["lookup_launches"]
               + train_run["launches"]["corr_lookup"])
     train_zoo_launches = {k: sum(train_zoo_run[name]["launches"][k] for name in ZOO_TRAIN_MODELS)
                           for k in train_run["launches"]}
-    lookup += train_zoo_launches["corr_lookup"]
-    train_launches = {k: n + train_zoo_launches[k] for k, n in train_run["launches"].items()}
-    launches = dict(train_launches, play_attention_fwd=main_run["launches"] + vda_play,
+    lookup += train_zoo_launches["corr_lookup"] + data_run["lookup_launches"]
+    train_launches = {k: n + train_zoo_launches[k] + data_run["launches"][k]
+                      for k, n in train_run["launches"].items()}
+    launches = dict(train_launches,
+                    play_attention_fwd=main_run["launches"] + vda_play + data_run["play_launches"],
                     play_attention_carry=ring_run["launches"], corr_lookup=lookup)
     records = [kernel_record(key, name, source, replaces, rows[key], launches[name])
                for key, name, source, replaces in _KERNEL_RECORDS]
@@ -3755,6 +4138,13 @@ def main() -> None:
     for record in records[1:4]:
         record["launches_train_zoo"] = {name: train_zoo_run[name]["launches"][record["name"]]
                                         for name in ZOO_TRAIN_MODELS}
+    # per rank of the data phase: kernels 2-4 per train step, kernels 1 and
+    # 6 over the clip's windows
+    for record in records[1:4]:
+        record["launches_data_per_step"] = [r["launches"][0][record["name"]]
+                                            for r in data_run["readings"]]
+    for record, key in ((records[0], "play"), (records[5], "lookup")):
+        record["launches_data_windows"] = [r[key] for r in data_run["readings"]]
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -20,6 +20,19 @@ port's seeded initialisation. MODEL.model_kwargs ("k=v,k2=v2", values
 literal-evaluated) reaches the model zoo: the window modes (warm_start,
 warm_iters, encoder_cache: PPMStereoModel only) and every field of the
 model's config (mixed_precision, use_cnet, top_k, corr_radius, ...).
+
+MODEL.mesh ("DxSxP", data x seq x space) runs the evaluation in D x P
+processes, one per card, under torchrun:
+
+    torchrun --nproc_per_node 2 -m ppmstereo_tpu_torch.cli.evaluate \
+        --config ppmstereo_tpu_torch/configs/eval_dynamic_replica_40_frames.yaml \
+        MODEL.mesh=2x1x1 MODEL.batch_windows=2
+
+Every rank runs the evaluator on every sequence: the windows of a
+MODEL.batch_windows batch spread over `data`, and `space` rings
+PPMStereoModel's play steps (the JAX CLI's mesh); rank 0 writes the
+results. The processes join the launch's group as the train CLI's do
+(`parallel/mesh.py::join_group`). S > 1 raises (ROADMAP §1 item 7.1).
 """
 
 from __future__ import annotations
@@ -43,7 +56,7 @@ class ModelConfig:
     checkpoint: str = ""
     fast_mode: bool = False  # non-overlapping windows (non-parity)
     batch_windows: int = 1  # windows of one length per batch (strict)
-    # a (data, seq, space) mesh such as "1x1x2": not in this one-process CLI
+    # a (data, seq, space) mesh such as "2x1x1", one process per position
     mesh: str = ""
     # extra model-constructor kwargs as "k=v,k2=v2" (values literal-evaluated)
     model_kwargs: str = ""
@@ -101,9 +114,9 @@ def build_dataset(cfg: DefaultConfig):
 REAL_SEQUENCES = ("teddy_static", "ignacio_waving", "nikita_reading")
 
 
-def _run_real_eval(cfg: DefaultConfig, predictor, evaluator):
+def _run_real_eval(cfg: DefaultConfig, predictor, evaluator, writer: bool = True):
     """Each real capture found under the dataset root (no ground truth:
-    fps only)."""
+    fps only); `writer` dumps and prints the results."""
     from ppmstereo_tpu_torch.data.datasets import DynamicReplicaDataset
     from ppmstereo_tpu_torch.evaluation.evaluator import pretty_print_results
 
@@ -116,8 +129,9 @@ def _run_real_eval(cfg: DefaultConfig, predictor, evaluator):
         ds = DynamicReplicaDataset(root=root, split="test", sample_len=cfg.sample_len,
                                    only_first_n_samples=1)
         results = evaluator.evaluate_sequence(predictor, ds)
-        evaluator.dump(results, f"real_{seq_name}")
-        pretty_print_results(results)
+        if writer:
+            evaluator.dump(results, f"real_{seq_name}")
+            pretty_print_results(results)
         all_results[seq_name] = results
     return all_results
 
@@ -146,20 +160,33 @@ def load_checkpoint(predictor, path: str) -> None:
                                              transposed_kernels(predictor.model)))
 
 
+def parse_mesh(spec: str):
+    """"DxSxP" -> MeshSpec(D, S, P); S > 1 raises."""
+    from ppmstereo_tpu_torch.parallel.mesh import MeshSpec
+
+    data, seq, space = (int(x) for x in spec.split("x"))
+    if seq > 1:
+        raise NotImplementedError(f"MODEL.mesh={spec}: the seq axis of a window is ROADMAP §1 "
+                                  "item 7.1; the port shards data and space")
+    return MeshSpec(data=data, seq=seq, space=space)
+
+
 def run_eval(cfg: DefaultConfig, device: str = "cuda"):
+    """The evaluation of `cfg`; with MODEL.mesh, in every process of an
+    initialised process group of its size (rank 0 writes the results)."""
     from ppmstereo_tpu_torch.evaluation.evaluator import (
         EvalConfig,
         Evaluator,
         pretty_print_results,
     )
+    from ppmstereo_tpu_torch.parallel.mesh import make_mesh
 
-    if cfg.MODEL.mesh:
-        raise NotImplementedError(
-            f"MODEL.mesh={cfg.MODEL.mesh}: the port's sharded inference runs one process per "
-            "rank, and this CLI is one process; the data and seq axes and a sharded "
-            "evaluation are ROADMAP §1 item 7.2")
+    mesh = make_mesh(parse_mesh(cfg.MODEL.mesh)) if cfg.MODEL.mesh else None
+    writer = mesh is None or all(c == 0 for c in mesh.coords.values())
     kwargs = _parse_model_kwargs(cfg.MODEL.model_kwargs)
     kwargs.setdefault("device", device)
+    if mesh is not None:
+        kwargs["mesh"] = mesh
     predictor = model_zoo(cfg.MODEL.model_name, kernel_size=cfg.MODEL.kernel_size,
                           iters=cfg.MODEL.iters, fast_mode=cfg.MODEL.fast_mode,
                           batch_windows=cfg.MODEL.batch_windows, **kwargs)
@@ -168,12 +195,13 @@ def run_eval(cfg: DefaultConfig, device: str = "cuda"):
 
     evaluator = Evaluator(EvalConfig(exp_dir=cfg.exp_dir, crop=cfg.crop))
     if cfg.dataset_name == "real":
-        return _run_real_eval(cfg, predictor, evaluator)
+        return _run_real_eval(cfg, predictor, evaluator, writer)
     dataset = build_dataset(cfg)
     results = evaluator.evaluate_sequence(predictor, dataset)
-    path = evaluator.dump(results, cfg.dataset_name)
-    pretty_print_results(results)
-    logging.info(f"results -> {path}")
+    if writer:  # rank 0 of a mesh
+        path = evaluator.dump(results, cfg.dataset_name)
+        pretty_print_results(results)
+        logging.info(f"results -> {path}")
     return results
 
 
@@ -191,7 +219,18 @@ def main(argv=None):
         cfg = load_yaml(DefaultConfig, args.config, overrides=args.overrides)
     else:
         cfg = apply_overrides(DefaultConfig(), args.overrides)
-    return run_eval(cfg, device=args.device)
+    if cfg.MODEL.mesh:
+        parse_mesh(cfg.MODEL.mesh)  # refuse a seq axis before joining a group
+    import torch.distributed as dist
+
+    from ppmstereo_tpu_torch.parallel.mesh import join_group
+
+    device, started = join_group(args.device)
+    try:
+        return run_eval(cfg, device=device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

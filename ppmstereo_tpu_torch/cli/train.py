@@ -1,5 +1,5 @@
 """Training entry point of the port, with the JAX CLI's flag names
-(ppmstereo_tpu/cli/train.py) for a one-card run, plus `--device`:
+(ppmstereo_tpu/cli/train.py), plus `--device`:
 
     python -m ppmstereo_tpu_torch.cli.train --name ppmstereo --num_steps 200000 \\
         --batch_size 2 --lr 0.0003 --sample_len 5 --train_iters 10
@@ -15,15 +15,23 @@
     python -m ppmstereo_tpu_torch.cli.train --device cpu --image_size 64 128 \\
         --sample_len 3 --train_iters 1 --num_steps 2 --name dynamicstereo
 
+    # data-parallel on N cards: one process per card, each loading its
+    # block of every global batch of --batch_size clips
+    torchrun --nproc_per_node N -m ppmstereo_tpu_torch.cli.train --batch_size 2N
+
 With --config the preset (read by `utils/config.py::load_yaml`, its
 `model_kwargs` a mapping of the model config's fields) replaces the other flags
 but --device; trailing KEY=VALUE arguments override TrainConfig fields
 either way (e.g. log_freq=1). Runs on `cuda` unless `--device` names another
-device; raises without a card. The mesh sizes are TrainConfig fields
-(data_parallel=N and so on as overrides); above one device they raise
-(ROADMAP §1 item 7). As in the JAX CLI, the
-in-training evaluation is off here (`train(cfg)`); --evaluate_freq sets its
-interval for callers of `train(..., enable_eval=True)`.
+device; raises without a card. Under torchrun the CLI joins the launch's
+process group (`parallel/mesh.py::join_group`: rank r runs on card
+LOCAL_RANK, over NCCL when every rank has a card of its own, over gloo
+when ranks share one) and trains data-parallel over it; --data_parallel
+(0: every rank, cut to a divisor of the batch) must then match the group.
+--seq_parallel and --space_parallel above 1 raise (ROADMAP §1 item 7.3).
+As in the JAX CLI, the in-training evaluation is off here (`train(cfg)`);
+--evaluate_freq sets its interval for callers of
+`train(..., enable_eval=True)`.
 """
 
 from __future__ import annotations
@@ -51,11 +59,17 @@ def main(argv=None):
     p.add_argument("--save_freq", type=int, default=5000)
     p.add_argument("--num_workers", type=int, default=4)
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data_parallel", type=int, default=0)
+    p.add_argument("--seq_parallel", type=int, default=1)
+    p.add_argument("--space_parallel", type=int, default=1)
     p.add_argument("overrides", nargs="*", help="dotted KEY=VALUE overrides")
     args = p.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(message)s")
 
+    import torch.distributed as dist
+
+    from ppmstereo_tpu_torch.parallel.mesh import join_group
     from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
     from ppmstereo_tpu_torch.utils.config import apply_overrides, load_yaml
 
@@ -76,9 +90,17 @@ def main(argv=None):
             save_freq=args.save_freq,
             num_workers=args.num_workers,
             seed=args.seed,
+            data_parallel=args.data_parallel,
+            seq_parallel=args.seq_parallel,
+            space_parallel=args.space_parallel,
         )
         apply_overrides(cfg, args.overrides)
-    return train(cfg, device=args.device)
+    device, started = join_group(args.device)
+    try:
+        return train(cfg, device=device)
+    finally:
+        if started:
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -564,12 +564,13 @@ class SyntheticStereoDataset(StereoSequenceDataset):
 def fetch_dataloader(crop_size=(320, 512), sample_len=5, batch_size=2, num_workers=4,
                      sceneflow_root="datasets/SceneFlow",
                      dynamic_replica_root="datasets/dynamic_replica_data",
-                     use_synthetic_fallback=True, seed=0):
+                     use_synthetic_fallback=True, seed=0, data_rank=0, data_size=1):
     """The training loader: the reference's mixture, SceneFlow (final pass)
     + Dynamic Replica (train) for each root on disk, x50, shuffled, with
     the augmentor's right-view jitter (`yjitter` in the JAX package); with
     neither root, the synthetic dataset (or, without the fallback,
-    FileNotFoundError)."""
+    FileNotFoundError). Rank `data_rank` of a data axis of `data_size`
+    loads its block of each global batch of `batch_size` clips."""
     from ppmstereo_tpu_torch.data.loader import PrefetchLoader
 
     aug_params = {
@@ -595,4 +596,4 @@ def fetch_dataloader(crop_size=(320, 512), sample_len=5, batch_size=2, num_worke
     for p in parts[1:]:
         dataset = dataset + p
     return PrefetchLoader(dataset * 50, batch_size=batch_size, num_workers=num_workers,
-                          seed=seed)
+                          seed=seed, data_rank=data_rank, data_size=data_size)

@@ -7,6 +7,12 @@ of one seed are the same however the threads interleave.
 
 Batches are channels-last numpy dicts: left/right (B, T, H, W, 3) float32,
 disparity (B, T, H, W, 1), valid (B, T, H, W).
+
+Over a data axis of n ranks each rank loads only its block of every global
+batch (`parallel/sharding.py::local_slice`), B / n clips. The shuffle and
+the samples' generators depend on the seed, the epoch and the index alone,
+so every rank knows the global order, and the ranks' blocks put together
+are the batch one process loads.
 """
 
 from __future__ import annotations
@@ -16,6 +22,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+
+from ppmstereo_tpu_torch.parallel.sharding import local_slice
 
 
 def collate(samples: list[dict]) -> dict:
@@ -31,17 +39,20 @@ def collate(samples: list[dict]) -> dict:
 
 class PrefetchLoader:
     """Shuffled full batches (a short last batch is dropped), two batches
-    prefetched by `num_workers` threads."""
+    prefetched by `num_workers` threads. `batch_size` is the global batch;
+    rank `data_rank` of a data axis of `data_size` gets its block of it."""
 
     PREFETCH = 2
 
-    def __init__(self, dataset, batch_size: int = 2, num_workers: int = 4, seed: int = 0):
+    def __init__(self, dataset, batch_size: int = 2, num_workers: int = 4, seed: int = 0,
+                 data_rank: int = 0, data_size: int = 1):
         self.dataset = dataset
         self.batch_size = batch_size
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.epoch = 0
         self.rng = np.random.default_rng(seed)
+        self.mine = local_slice(batch_size, data_rank, data_size)
 
     def __len__(self):
         return len(self.dataset) // self.batch_size
@@ -50,7 +61,7 @@ class PrefetchLoader:
         order = np.arange(len(self.dataset))
         self.rng.shuffle(order)
         batches = [order[i: i + self.batch_size] for i in range(0, len(order), self.batch_size)]
-        batches = [b for b in batches if len(b) == self.batch_size]
+        batches = [b[self.mine] for b in batches if len(b) == self.batch_size]
         epoch, self.epoch = self.epoch, self.epoch + 1
 
         def sample(index):

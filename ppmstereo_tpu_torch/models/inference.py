@@ -16,7 +16,15 @@ modes are here too:
                   over the shared frames (non-parity)
 
 The warm seed and the cached features stay on the device between windows;
-only each window's kept frames are copied to the host. The JAX package's
+only each window's kept frames are copied to the host.
+
+Under a mesh's `data` axis (`data_group`), every rank calls the predictor
+on the same video, and a batch of `batch_windows` windows spreads over the
+axis, as the JAX predictor's `_sharding(batched=True)` lays it out: each
+rank runs its block of the batch, and the outputs are all-gathered. A batch
+that the axis does not divide raises, as the JAX sharding does; a single
+window, and every window of the warm and encoder-cache modes, runs whole on
+every rank. The JAX package's
 `wire_dtype`, `max_inflight_windows` and per-window-shape jit serve XLA and
 the TPU's host link and have no counterpart here.
 """
@@ -27,8 +35,11 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ppmstereo_tpu_torch.ops.padding import InputPadder
+from ppmstereo_tpu_torch.parallel.collectives import all_gather
+from ppmstereo_tpu_torch.parallel.sharding import local_slice
 
 
 def window_trim_bounds(i: int, wlen: int, k: int, stride: int,
@@ -95,6 +106,9 @@ class SlidingWindowPredictor:
     predictor also has its warm body.
 
     fetch_uncertainty=False drops the "uncertainties" output.
+
+    data_group: the mesh's data-axis process group, over which batched
+    windows spread (None: one process).
     """
 
     def __init__(self, window_fn: Callable, kernel_size: int = 20,
@@ -103,8 +117,9 @@ class SlidingWindowPredictor:
                  warm_window_fn: Callable | None = None, fetch_uncertainty: bool = True,
                  encode_window_fn: Callable | None = None,
                  body_window_fn: Callable | None = None,
-                 warm_body_window_fn: Callable | None = None):
+                 warm_body_window_fn: Callable | None = None, data_group=None):
         self.window_fn = window_fn
+        self.data_group = data_group
         self.warm_window_fn = warm_window_fn
         self.kernel_size = kernel_size
         self.device = torch.device(device)
@@ -180,10 +195,18 @@ class SlidingWindowPredictor:
 
     @torch.no_grad()
     def _run_window_batch(self, lefts: torch.Tensor, rights: torch.Tensor):
-        """lefts/rights (B, T, H, W, 3) -> tuple of (B, T, H, W, 1) outputs."""
+        """lefts/rights (B, T, H, W, 3) -> tuple of (B, T, H, W, 1) outputs.
+        Over a data axis each rank runs its block of the B windows."""
         padder = InputPadder(lefts.shape[2], lefts.shape[3])
+        group = self.data_group
+        if group is not None:
+            mine = local_slice(lefts.shape[0], dist.get_rank(group), dist.get_world_size(group))
+            lefts, rights = lefts[mine], rights[mine]
         lp, rp = padder.pad(lefts, rights)
-        return self._finish(padder, self.window_fn(lp, rp), batched=True)
+        outs = self._finish(padder, self.window_fn(lp, rp), batched=True)
+        if group is not None:
+            outs = tuple(all_gather(o.contiguous(), group, dim=0) for o in outs)
+        return outs
 
     def _windows(self, num_ims: int, stride: int) -> list[tuple[int, int]]:
         """(start, length) of every window; the reference skips tails

@@ -29,6 +29,14 @@ near-tie of frame scores cannot split the processes. This is the JAX
 package's ring path (`ring_attention=True` under a `space` mesh) with its
 divisibility rule; the rest of the window is not sharded here.
 
+Under a mesh whose `data` axis has n > 1 processes (test and train mode),
+each process runs its block of the global batch. The one op that couples a
+batch's clips is the normalisation of the picked frames' scores by their
+mean over the batch and the picks (`batch_mean`): it is taken over the
+global batch, the sum and the count all-reduced over the data axis (its
+own subgroup, `Mesh.batch_group`), with a backward that sums the cotangent
+over the axis, as XLA's SPMD partitioning of the JAX model computes it.
+
 The architecture comes from `PPMStereoConfig`, the port's copy of the JAX
 package's dataclass with its defaults (the shipped configuration); its
 `__post_init__` refuses what the port does not run. With `use_vfm`
@@ -80,10 +88,24 @@ from ppmstereo_tpu_torch.ops.geometry import (
     interp_bilinear,
 )
 from ppmstereo_tpu_torch.ops.upsample import convex_upsample_2d, convex_upsample_3d
-from ppmstereo_tpu_torch.parallel import ring_attention
+from ppmstereo_tpu_torch.parallel import collectives, ring_attention
 
 
 SHIPPED_ATTENTION = "self_stereo_temporal_update_time_update_space"
+
+
+def batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """x (B, T, k) -> its mean over the batch and the picks (B and k),
+    (1, T, 1). With a data-axis `group` the batch is the global one: the
+    sums and the counts of every rank, all-reduced in one message, and the
+    gradient of each rank's sum is the sum over the ranks of the gradient
+    of the mean."""
+    if group is None:
+        return x.mean(dim=(0, 2), keepdim=True)
+    total = x.sum(dim=(0, 2), keepdim=True)
+    count = total.new_full((1,), x.shape[0] * x.shape[2])
+    both = collectives.all_reduce_sum(torch.cat([total.reshape(-1), count]), group)
+    return both[:-1].reshape(total.shape) / both[-1].detach()
 
 
 @dataclass(frozen=True)
@@ -186,7 +208,7 @@ class PPMUpdateLoop(nn.Module):
 
     def __init__(self, cfg: PPMStereoConfig, iters: int, attention_type: str | None = None,
                  with_init_hidden: bool = False, interp_scale: int = 1,
-                 collect_preds: bool = False, space_group=None):
+                 collect_preds: bool = False, space_group=None, data_group=None):
         super().__init__()
         self.cfg = cfg
         self.iters = iters
@@ -194,6 +216,7 @@ class PPMUpdateLoop(nn.Module):
         self.interp_scale = interp_scale
         self.collect_preds = collect_preds
         self.space_group = space_group  # the ring's process group, or None
+        self.data_group = data_group  # the batch mean's process group, or None
         self.update_block = SequenceUpdateBlock3D(
             cfg.hidden_dim, cfg.corr_levels * (2 * cfg.corr_radius + 1),
             cfg.dim - cfg.hidden_dim, cfg.use_convex_3d, attention_type, with_init_hidden,
@@ -228,7 +251,7 @@ class PPMUpdateLoop(nn.Module):
             out = ring_attention.ring_play_attention(
                 query_pe.to(torch.bfloat16), sel_key.to(torch.bfloat16),
                 sel_val.to(torch.bfloat16), scale, group)
-            return ring_attention.all_gather(out, group, dim=2).to(self.dtype)
+            return collectives.all_gather(out, group, dim=2).to(self.dtype)
         q_tok = query_pe.reshape(b * t, h * w, c).to(torch.bfloat16)
         k_tok = sel_key.reshape(b * t, k * h * w, c).to(torch.bfloat16)
         v_tok = sel_val.reshape(b * t, k * h * w, c).to(torch.bfloat16)
@@ -275,14 +298,14 @@ class PPMUpdateLoop(nn.Module):
         if not picked:
             idx = torch.topk(frame_score.detach(), min(self.cfg.top_k, t), dim=-1).indices
             if self.space_group is not None:  # one set of picks for the ring
-                idx = ring_attention.broadcast_from_first(idx, self.space_group)
+                idx = collectives.broadcast_from_first(idx, self.space_group)
             picked.append(idx)
             if picks is not None:
                 picks.append(picked[0])
         idx = picked[0]
         sel_score = frame_score.gather(-1, idx)
         strive = strive + F.one_hot(idx, t).sum(dim=-2).float()
-        score_norm = sel_score / sel_score.mean(dim=(0, 2), keepdim=True)
+        score_norm = sel_score / batch_mean(sel_score, self.data_group)
         # 5. play: attend over the picked memory
         hidden_states = self._play(query_pe, key_aug, value, idx, score_norm)
         motion_global = motion + ub.aggregator.beta.to(dtype) * hidden_states
@@ -370,23 +393,27 @@ class PPMStereo(nn.Module):
     `torch.no_grad()`.
 
     mesh (`parallel/mesh.py`): with a `space` axis of n > 1 processes, the
-    play steps run as the ring over it (test mode only). The data and seq
-    axes are not ported yet and must be 1."""
+    play steps run as the ring over it (test mode only); with a `data` axis
+    of n > 1, each process runs its block of the global batch and the
+    picked scores' batch mean is the global batch's (test and train mode).
+    The seq axis is not ported and must be 1."""
 
     def __init__(self, cfg: PPMStereoConfig = PPMStereoConfig(), iters: int = 10,
                  test_mode: bool = False, mesh=None):
         super().__init__()
-        space_group = None
+        space_group = data_group = None
         if mesh is not None:
-            if mesh.shape["data"] > 1 or mesh.shape["seq"] > 1:
+            if mesh.shape["seq"] > 1:
                 raise NotImplementedError(
-                    f"mesh {mesh.shape}: the port shards the space axis only; the data "
-                    "and seq axes are later work (ROADMAP §1 item 7)")
+                    f"mesh {mesh.shape}: the port shards the data and space axes; the seq "
+                    "axis of a window is ROADMAP §1 item 7.1")
             if mesh.shape["space"] > 1:
                 if not test_mode:
                     raise ValueError("the ring play attention is inference only: a mesh "
                                      "with space > 1 needs test_mode=True")
                 space_group = mesh.groups["space"]
+            if mesh.shape["data"] > 1:
+                data_group = mesh.batch_group
         self.cfg = cfg
         self.test_mode = test_mode
         self.dtype = dtype = cfg.dtype
@@ -406,11 +433,12 @@ class PPMStereo(nn.Module):
         train = not test_mode
         self.update_block16 = PPMUpdateLoop(cfg, half, cfg.attention_type,
                                             with_init_hidden=True, interp_scale=4,
-                                            collect_preds=train, space_group=space_group)
+                                            collect_preds=train, space_group=space_group,
+                                            data_group=data_group)
         self.update_block08 = PPMUpdateLoop(cfg, half, interp_scale=2, collect_preds=train,
-                                            space_group=space_group)
+                                            space_group=space_group, data_group=data_group)
         self.update_block04 = PPMUpdateLoop(cfg, iters, collect_preds=train,
-                                            space_group=space_group)
+                                            space_group=space_group, data_group=data_group)
 
     def compute_qk_similarity(self, query, key):
         """Cosine similarity of pooled per-frame descriptors:

@@ -12,6 +12,12 @@ StereoAnyVideoModel.
 The window modes of `models/inference.py` are keyword arguments:
 `fast_mode` and `batch_windows` for every model, `warm_start` (with
 `warm_iters`) and `encoder_cache` for PPMStereoModel.
+
+`mesh` (`parallel/mesh.make_mesh`, every process of it calling the
+predictor on the same video): over its `data` axis the windows of a
+`batch_windows` batch spread over the processes, for every model; the
+`space` axis rings PPMStereoModel's play steps. The `seq` axis, and
+`space` for the other models, raise.
 """
 
 from __future__ import annotations
@@ -90,7 +96,7 @@ class StereoVideoPredictor:
     def __init__(self, model: nn.Module, kernel_size: int, device: torch.device,
                  fast_mode: bool = False, batch_windows: int = 1, warm_start: bool = False,
                  warm_iters: int | None = None, encoder_cache: bool = False,
-                 outputs_uncertainty: bool = True):
+                 outputs_uncertainty: bool = True, data_group=None):
         self.model = model = model.to(device).eval()
         if not hasattr(model, "encode_frames") or model.cfg.use_vfm:
             if warm_start or encoder_cache:
@@ -107,7 +113,8 @@ class StereoVideoPredictor:
 
             self.predictor = SlidingWindowPredictor(
                 whole_window_fn, kernel_size=kernel_size, device=device, fast_mode=fast_mode,
-                batch_windows=batch_windows, fetch_uncertainty=outputs_uncertainty)
+                batch_windows=batch_windows, fetch_uncertainty=outputs_uncertainty,
+                data_group=data_group)
             return
         chunk = math.gcd(kernel_size, kernel_size // 2)
         chunk = chunk if chunk > 1 else None
@@ -137,7 +144,7 @@ class StereoVideoPredictor:
             window_fn, kernel_size=kernel_size, device=device, fast_mode=fast_mode,
             batch_windows=batch_windows, warm_window_fn=warm_fn, encode_window_fn=enc_fn,
             body_window_fn=body_fn, warm_body_window_fn=warm_body_fn,
-            fetch_uncertainty=outputs_uncertainty)
+            fetch_uncertainty=outputs_uncertainty, data_group=data_group)
 
     def load_params(self, params: Mapping[str, np.ndarray]) -> None:
         """Load flat flax parameters (`{"params/a/b/kernel": array}`)."""
@@ -162,10 +169,11 @@ def _build_ppm(kernel_size: int = 20, iters: int = 20,
     `cuda` unless `device` names another device; raises when there is no
     card and no CPU request.
 
-    mesh (`parallel/mesh.make_mesh`): with a `space` axis of n > 1, every
-    process of the mesh calls the predictor on the same video; the play
-    steps run as the ring over the processes, and every process returns
-    the whole stitched video."""
+    mesh (`parallel/mesh.make_mesh`): every process of the mesh calls the
+    predictor on the same video and returns the whole stitched video. With
+    a `space` axis of n > 1 the play steps run as the ring over it; with a
+    `data` axis of n > 1 a batch of `batch_windows` windows spreads over it
+    (the model's batch mean of the picked scores is the whole batch's)."""
     cfg = PPMStereoConfig(**cfg_kwargs)
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -174,13 +182,14 @@ def _build_ppm(kernel_size: int = 20, iters: int = 20,
     _load_or_init(model, params, seed)
     return StereoVideoPredictor(model, kernel_size, dev, fast_mode=fast_mode,
                                 batch_windows=batch_windows, warm_start=warm_start,
-                                warm_iters=warm_iters, encoder_cache=encoder_cache)
+                                warm_iters=warm_iters, encoder_cache=encoder_cache,
+                                data_group=_data_group(mesh))
 
 
 @register("PPMStereoVDAModel")
 def _build_ppm_vda(kernel_size: int = 20, iters: int = 20,
                    params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
-                   device: str | torch.device | None = None, fast_mode: bool = False,
+                   device: str | torch.device | None = None, mesh=None, fast_mode: bool = False,
                    batch_windows: int = 1, warm_start: bool = False,
                    warm_iters: int | None = None, encoder_cache: bool = False,
                    **cfg_kwargs) -> StereoVideoPredictor:
@@ -190,10 +199,22 @@ def _build_ppm_vda(kernel_size: int = 20, iters: int = 20,
     so warm_start and encoder_cache raise, as the JAX package's constructor
     takes neither."""
     cfg = PPMStereoConfig(use_vfm=True, use_cnet=True, **cfg_kwargs)
-    model = PPMStereo(cfg, iters, test_mode=True)
+    model = PPMStereo(cfg, iters, test_mode=True, mesh=mesh)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
                            warm_start or warm_iters is not None, encoder_cache,
-                           outputs_uncertainty=True)
+                           outputs_uncertainty=True, mesh=mesh)
+
+
+def _data_group(mesh, model_name: str | None = None):
+    """The data axis's process group of `mesh` (None without one). For a
+    model other than PPMStereo (`model_name`) a seq or space axis raises."""
+    if mesh is None:
+        return None
+    if model_name is not None and (mesh.shape["seq"] > 1 or mesh.shape["space"] > 1):
+        raise NotImplementedError(
+            f"mesh {mesh.shape}: {model_name} spreads windows over the data axis only; the "
+            "space ring is PPMStereoModel's, and the seq axis is ROADMAP §1 item 7.1")
+    return mesh.groups["data"]
 
 
 def _load_or_init(model: nn.Module, params, seed: int) -> None:
@@ -205,14 +226,15 @@ def _load_or_init(model: nn.Module, params, seed: int) -> None:
 
 def _build_baseline(model: nn.Module, kernel_size: int, params, seed: int, device,
                     fast_mode: bool, batch_windows: int, warm: bool,
-                    encoder_cache: bool, outputs_uncertainty: bool = False
+                    encoder_cache: bool, outputs_uncertainty: bool = False, mesh=None
                     ) -> StereoVideoPredictor:
     """A whole-window model with the JAX package's flat parameters
     (`params`: its init's, or the npz of an import CLI) or, with
     `params=None`, the port's initialisation from `seed`; on `cuda` unless
     `device` names another device. The output has no uncertainty unless
     `outputs_uncertainty`; a warm start (`warm`) and encoder_cache raise
-    (see StereoVideoPredictor)."""
+    (see StereoVideoPredictor). `mesh`: its data axis (see model_zoo)."""
+    group = _data_group(mesh, type(model).__name__)
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
@@ -220,13 +242,13 @@ def _build_baseline(model: nn.Module, kernel_size: int, params, seed: int, devic
     return StereoVideoPredictor(model, kernel_size, dev, fast_mode=fast_mode,
                                 batch_windows=batch_windows, warm_start=warm,
                                 encoder_cache=encoder_cache,
-                                outputs_uncertainty=outputs_uncertainty)
+                                outputs_uncertainty=outputs_uncertainty, data_group=group)
 
 
 @register("DynamicStereoModel")
 def _build_dynamic(kernel_size: int = 20, iters: int = 20,
                    params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
-                   device: str | torch.device | None = None, fast_mode: bool = False,
+                   device: str | torch.device | None = None, mesh=None, fast_mode: bool = False,
                    batch_windows: int = 1, warm_start: bool = False,
                    warm_iters: int | None = None, encoder_cache: bool = False,
                    **cfg_kwargs) -> StereoVideoPredictor:
@@ -235,13 +257,13 @@ def _build_dynamic(kernel_size: int = 20, iters: int = 20,
     for PPMStereoModel (`_build_baseline`)."""
     model = DynamicStereo(DynamicStereoConfig(**cfg_kwargs), iters, test_mode=True)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
-                           warm_start or warm_iters is not None, encoder_cache)
+                           warm_start or warm_iters is not None, encoder_cache, mesh=mesh)
 
 
 @register("RAFTStereoModel")
 def _build_raft_stereo(kernel_size: int = 20, iters: int = 32,
                        params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
-                       device: str | torch.device | None = None, fast_mode: bool = False,
+                       device: str | torch.device | None = None, mesh=None, fast_mode: bool = False,
                        batch_windows: int = 1, warm_start: bool = False,
                        warm_iters: int | None = None, encoder_cache: bool = False,
                        **cfg_kwargs) -> StereoVideoPredictor:
@@ -250,13 +272,13 @@ def _build_raft_stereo(kernel_size: int = 20, iters: int = 32,
     other arguments as for PPMStereoModel (`_build_baseline`)."""
     model = RAFTStereoVideoAdapter(RAFTStereoConfig(**cfg_kwargs), iters)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
-                           warm_start or warm_iters is not None, encoder_cache)
+                           warm_start or warm_iters is not None, encoder_cache, mesh=mesh)
 
 
 @register("BiDAStereoModel")
 def _build_bida(kernel_size: int = 20, iters: int = 10,
                 params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
-                device: str | torch.device | None = None, fast_mode: bool = False,
+                device: str | torch.device | None = None, mesh=None, fast_mode: bool = False,
                 batch_windows: int = 1, warm_start: bool = False,
                 warm_iters: int | None = None, encoder_cache: bool = False,
                 **cfg_kwargs) -> StereoVideoPredictor:
@@ -265,13 +287,13 @@ def _build_bida(kernel_size: int = 20, iters: int = 10,
     PPMStereoModel (`_build_baseline`)."""
     model = BiDAStereo(BiDAStereoConfig(**cfg_kwargs), iters, test_mode=True)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
-                           warm_start or warm_iters is not None, encoder_cache)
+                           warm_start or warm_iters is not None, encoder_cache, mesh=mesh)
 
 
 @register("StereoAnyVideoModel")
 def _build_sav(kernel_size: int = 20, iters: int = 12,
                params: Mapping[str, np.ndarray] | None = None, seed: int = 0,
-               device: str | torch.device | None = None, fast_mode: bool = False,
+               device: str | torch.device | None = None, mesh=None, fast_mode: bool = False,
                batch_windows: int = 1, warm_start: bool = False,
                warm_iters: int | None = None, encoder_cache: bool = False,
                **cfg_kwargs) -> StereoVideoPredictor:
@@ -281,4 +303,4 @@ def _build_sav(kernel_size: int = 20, iters: int = 12,
     (`_build_baseline`)."""
     model = StereoAnyVideo(StereoAnyVideoConfig(**cfg_kwargs), iters, test_mode=True)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
-                           warm_start or warm_iters is not None, encoder_cache)
+                           warm_start or warm_iters is not None, encoder_cache, mesh=mesh)

@@ -1,0 +1,94 @@
+"""Collectives over a process group, for tensors on a card or the CPU.
+
+A gloo group moves host tensors only, so when the group's backend is gloo
+and the tensors are on a card, every message is staged through pinned host
+buffers (`host_staged`): the work around it stays on the card. An NCCL
+group moves the device buffers directly.
+
+`all_reduce_sum` has a backward: the cotangent summed over the group, the
+adjoint of a sum over ranks whose losses are added up (the data axis's
+batch mean in `models/ppm_stereo.py`).
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.distributed as dist
+
+
+def host_staged(group, device: torch.device) -> bool:
+    """Whether messages of `group` on `device` pass through host memory: a
+    gloo group moves host tensors only."""
+    return device.type == "cuda" and dist.get_backend(group) == "gloo"
+
+
+def _to_host(x: torch.Tensor, out: torch.Tensor | None = None) -> torch.Tensor:
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True) if out is None else out
+    host.copy_(x)  # waits for the device: the message must be complete
+    return host
+
+
+def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The blocks `x` of every rank of `group`, concatenated along `dim` in
+    rank order (host-staged under gloo on a card)."""
+    device = x.device
+    staged = host_staged(group, device)
+    src = _to_host(x) if staged else x.contiguous()
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(device)
+
+
+def broadcast_from_first(x: torch.Tensor, group) -> torch.Tensor:
+    """`x` as rank 0 of `group` holds it, on every rank of the group."""
+    staged = host_staged(group, x.device)
+    buf = _to_host(x) if staged else x.contiguous().clone()
+    dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
+    return buf.to(x.device)
+
+
+def all_reduce_(x: torch.Tensor, group, host: torch.Tensor | None = None) -> torch.Tensor:
+    """Sum the contiguous `x` over `group` in place and return it. Under
+    gloo on a card the sum goes through `host` (a pinned buffer of x's
+    shape and dtype, made here when None)."""
+    if host_staged(group, x.device):
+        host = _to_host(x, host)
+        dist.all_reduce(host, group=group)
+        x.copy_(host)
+    else:
+        dist.all_reduce(x, group=group)
+    return x
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.detach().clone(memory_format=torch.contiguous_format), group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce_(grad.clone(memory_format=torch.contiguous_format), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of `x` over the ranks of `group`, differentiable: the
+    gradient that reaches `x` is the sum over the ranks of the gradient of
+    the result."""
+    return _AllReduceSum.apply(x, group)
+
+
+def broadcast_tensors_(tensors, group) -> None:
+    """Overwrite `tensors` on every rank of `group` with rank 0's, one
+    message per dtype (the tensors flattened into it)."""
+    by_dtype: dict = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        flat = torch.cat([t.detach().reshape(-1) for t in same])
+        flat = broadcast_from_first(flat, group)
+        start = 0
+        with torch.no_grad():
+            for t in same:
+                t.copy_(flat[start: start + t.numel()].view_as(t))
+                start += t.numel()

@@ -8,21 +8,32 @@ two coordinates. Ranks are laid out row-major over (data, seq, space), as
 the JAX mesh reshapes its device list, so the `space` neighbours of a rank
 are consecutive ranks.
 
-  data   batches of windows or clips (not used by this slice)
-  seq    the frame axis of a window (not used by this slice)
+  data   batches of clips or windows: each rank holds its contiguous
+         block of the global batch (`parallel/sharding.py`); the train
+         step sums the gradients over it, and PPMStereo's batch mean of
+         the picked frames' scores is taken over it (`batch_group`)
+  seq    the frame axis of a window (not ported: PPMStereo refuses it)
   space  the rows of a window: the ring play attention shards each play
          step's query rows and picked memory over it
 
 Any axis may be 1.
+
+One process per card is the PyTorch idiom. `join_group` joins the group
+that `torchrun --nproc_per_node N` describes in the environment; the
+tests and chip_smoke.py start theirs with `parallel/launch.py::run_group`.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass, field
 from datetime import timedelta
 
 import numpy as np
+import torch
 import torch.distributed as dist
+
+from ppmstereo_tpu_torch.utils.device import resolve_device
 
 AXES = ("data", "seq", "space")
 
@@ -42,11 +53,17 @@ class MeshSpec:
 class Mesh:
     """This process's place in the mesh: the axis sizes (`shape`), its
     coordinate on each axis (`coords`) and each axis's subgroup (`groups`;
-    None for an axis of size 1)."""
+    None for an axis of size 1).
+
+    batch_group: a second subgroup over the ranks of `groups["data"]`,
+    for PPMStereo's batch mean only. A checkpointed train-mode iteration
+    issues that mean again in the backward pass, so on a group of its own
+    it cannot interleave with the other collectives of the data axis."""
 
     spec: MeshSpec
     coords: dict
     groups: dict = field(repr=False)
+    batch_group: object = field(default=None, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -68,6 +85,7 @@ def make_mesh(spec: MeshSpec, timeout: timedelta | None = None) -> Mesh:
     ranks = np.arange(world).reshape(sizes)
     coords = {axis: int(c) for axis, c in zip(AXES, np.unravel_index(rank, sizes))}
     groups = {}
+    batch_group = None
     for a, axis in enumerate(AXES):
         groups[axis] = None
         if sizes[a] == 1:
@@ -76,6 +94,49 @@ def make_mesh(spec: MeshSpec, timeout: timedelta | None = None) -> Mesh:
         # collective, so every rank creates every group
         for members in np.moveaxis(ranks, a, -1).reshape(-1, sizes[a]).tolist():
             group = dist.new_group(members, timeout=timeout)
+            second = dist.new_group(members, timeout=timeout) if axis == "data" else None
             if rank in members:
                 groups[axis] = group
-    return Mesh(spec, coords, groups)
+                batch_group = second if axis == "data" else batch_group
+    return Mesh(spec, coords, groups, batch_group)
+
+
+def backend_for(device: torch.device, ranks_on_host: int) -> str:
+    """The process group's backend: NCCL when every rank of this host has a
+    card of its own, gloo when ranks share a card (NCCL refuses two ranks
+    on one GPU) or run on the CPU."""
+    if device.type == "cuda" and ranks_on_host <= torch.cuda.device_count():
+        return "nccl"
+    return "gloo"
+
+
+def join_group(device: str | torch.device | None = None,
+               timeout: timedelta | None = None) -> tuple[torch.device, bool]:
+    """Join the process group of a `torchrun --nproc_per_node N` launch and
+    return (this rank's device, whether this call started the group).
+
+    Reads RANK, WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and MASTER_ADDR /
+    MASTER_PORT. On a card the rank's device is cuda:(LOCAL_RANK % the
+    host's card count) and becomes the current device; `device` names the
+    type (`cuda` unless another is named: no CPU fallback). The backend
+    follows `backend_for`, and rank 0 prints the choice; an NCCL group that
+    fails to start raises. Without WORLD_SIZE > 1, or in a process whose
+    default group is already up (`parallel/launch.py::run_group`), nothing
+    is started and the device is `device`'s."""
+    dev = resolve_device(device)
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if dist.is_initialized() or world == 1:
+        return dev, False
+    rank, local_rank = int(os.environ["RANK"]), int(os.environ.get("LOCAL_RANK", "0"))
+    if dev.type == "cuda":
+        dev = torch.device("cuda", local_rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+    on_host = int(os.environ.get("LOCAL_WORLD_SIZE", str(world)))
+    backend = backend_for(dev, on_host)
+    if rank == 0:
+        print(f"process group: {world} ranks, {on_host} on this host, device {dev.type}"
+              + (f" ({torch.cuda.device_count()} cards)" if dev.type == "cuda" else "")
+              + f": backend {backend}", flush=True)
+    dist.init_process_group(backend, init_method="env://", rank=rank, world_size=world,
+                            timeout=timeout)
+    return dev, True

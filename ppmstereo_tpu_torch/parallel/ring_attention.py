@@ -14,10 +14,9 @@ play attention up to the f32 reassociation of the merge and the bf16
 rounding of the unnormalised probabilities.
 
 Transport: `torch.distributed.batch_isend_irecv` of one packed buffer per
-hop. A gloo group moves host tensors only, so when the group's backend is
-gloo and the tensors are on a card, every message is staged through pinned
-host buffers (`host_staged`): the kernels still run on the card. An NCCL
-group moves the device buffers directly.
+hop, staged through pinned host buffers under gloo on a card
+(`parallel/collectives.py::host_staged`): the kernels still run on the
+card. An NCCL group moves the device buffers directly.
 """
 
 from __future__ import annotations
@@ -26,20 +25,9 @@ import torch
 import torch.distributed as dist
 
 from ppmstereo_tpu_torch.kernels.play_attention import play_attention_carry
+from ppmstereo_tpu_torch.parallel.collectives import _to_host, host_staged
 
 NEG_INF = -1e30  # the empty state's row max, as the JAX ring starts from
-
-
-def host_staged(group, device: torch.device) -> bool:
-    """Whether messages of `group` on `device` pass through host memory: a
-    gloo group moves host tensors only."""
-    return device.type == "cuda" and dist.get_backend(group) == "gloo"
-
-
-def _to_host(x: torch.Tensor) -> torch.Tensor:
-    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
-    host.copy_(x)  # waits for the device: the message must be complete
-    return host
 
 
 def _pack(tensors) -> torch.Tensor:
@@ -85,25 +73,6 @@ def shift(tensors, group) -> list:
 
 shift.messages = 0
 shift.bytes = 0
-
-
-def all_gather(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """The blocks `x` of every rank of `group`, concatenated along `dim` in
-    rank order (host-staged under gloo on a card)."""
-    device = x.device
-    staged = host_staged(group, device)
-    src = _to_host(x) if staged else x.contiguous()
-    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
-    dist.all_gather(parts, src, group=group)
-    return torch.cat(parts, dim=dim).to(device)
-
-
-def broadcast_from_first(x: torch.Tensor, group) -> torch.Tensor:
-    """`x` as rank 0 of `group` holds it, on every rank of the group."""
-    staged = host_staged(group, x.device)
-    buf = _to_host(x) if staged else x.contiguous().clone()
-    dist.broadcast(buf, src=dist.get_global_rank(group, 0), group=group)
-    return buf.to(x.device)
 
 
 def _ring_local(q, k, v, scale: float, group):

@@ -8,6 +8,9 @@ update count, the finite guard's counters) and the train step; the newest
 into place, so an interrupted save leaves no partial checkpoint.
 `export_npz` (utils/weights.py) writes the parameters in the anchor's flat
 npz format for either package's `model_zoo`.
+
+Over a data axis only rank 0 writes (`write=True`); every rank reads a
+resume from the same files.
 """
 
 from __future__ import annotations
@@ -24,16 +27,25 @@ _NAME = re.compile(r"step_(\d+)\.pt$")
 
 
 class CheckpointManager:
-    def __init__(self, ckpt_dir: str | Path, max_to_keep: int = 5):
+    """write=False: a reader only (a rank other than 0 of a data axis); it
+    creates no directory and `save` writes nothing."""
+
+    def __init__(self, ckpt_dir: str | Path, max_to_keep: int = 5, write: bool = True):
         self.ckpt_dir = Path(ckpt_dir)
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.max_to_keep = max_to_keep
 
     def steps(self) -> list[int]:
+        if not self.ckpt_dir.is_dir():
+            return []
         found = (_NAME.search(p.name) for p in self.ckpt_dir.iterdir())
         return sorted(int(m.group(1)) for m in found if m)
 
-    def save(self, state: TrainState) -> Path:
+    def save(self, state: TrainState) -> Path | None:
+        if not self.write:
+            return None
         path = self.ckpt_dir / f"step_{state.step}.pt"
         tmp = path.with_suffix(f".{os.getpid()}.tmp")
         torch.save({"model": state.model.state_dict(),

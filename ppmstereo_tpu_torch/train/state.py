@@ -104,15 +104,24 @@ class TrainOptimizer:
         self.notfinite_count = 0  # consecutive skipped updates
         self.total_notfinite = 0
 
-    def step(self) -> bool:
-        """Apply (or skip) one update from the parameters' .grad, then clear
-        them. Returns whether the update was applied."""
+    def gradients(self) -> list[torch.Tensor]:
+        """The .grad of every parameter this optimiser updates, in a fixed
+        order; an unused parameter's is zero-filled first (a zero gradient,
+        as in JAX), so every rank of a data axis holds the same list."""
         grads = []
         for group in self.groups:
             for p in group:
-                if p.grad is None:  # an unused parameter: a zero gradient, as in JAX
+                if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 grads.append(p.grad)
+        return grads
+
+    def step(self) -> bool:
+        """Apply (or skip) one update from the parameters' .grad, then clear
+        them. Returns whether the update was applied. Over a data axis the
+        gradients must be the reduced ones (`train/step.py`): the finite
+        guard and the clips then take the same decision on every rank."""
+        grads = self.gradients()
         finite = bool(torch.stack([torch.isfinite(g).all() for g in grads]).all())
         self.notfinite_count = 0 if finite else self.notfinite_count + 1
         self.total_notfinite += 0 if finite else 1
@@ -144,11 +153,15 @@ class TrainOptimizer:
 class TrainState:
     """The model, its optimiser, whether the model has an uncertainty head
     (`build_train_model`'s second output: a model without one returns its
-    predictions alone) and the number of train steps taken."""
+    predictions alone), the number of train steps taken and the data
+    axis's process group (None in one process): the train step's loss is
+    then the global batch's and its gradients are summed over the group."""
 
     def __init__(self, model: nn.Module, optimizer: TrainOptimizer,
-                 has_uncertainty: bool, step: int = 0):
+                 has_uncertainty: bool, step: int = 0, data_group=None):
         self.model = model
         self.optimizer = optimizer
         self.has_uncertainty = has_uncertainty
         self.step = step
+        self.data_group = data_group
+        self.staging: dict = {}  # pinned host buffers of the gradient all-reduce

@@ -1,9 +1,11 @@
-"""The one-card training loop (counterpart of ppmstereo_tpu/train/trainer.py
-on one device in one process): data -> train step -> metrics ->
-checkpoints -> in-training evaluation.
+"""The training loop (counterpart of ppmstereo_tpu/train/trainer.py): data
+-> train step -> metrics -> checkpoints -> in-training evaluation, on one
+card or data-parallel over a process group (one process per card).
 
     state = train(TrainConfig(num_steps=1000), device="cuda")
     state = train(TrainConfig(model_name="stereoanyvideo"), device="cuda")
+
+    # N cards: torchrun --nproc_per_node N -m ppmstereo_tpu_torch.cli.train
 
 `model_name` picks one of the JAX trainer's six models (`build_train_model`):
 ppmstereo and memstereo (PPMStereo), ppmstereo_vda (PPMStereo with the
@@ -13,8 +15,19 @@ stereoanyvideo, each at its config's defaults with `mixed_precision` and
 initialisation (seeded with `cfg.seed`), or from flat flax parameters given
 as `init_params` (e.g. `load_npz("checkpoints/anchor_r5.npz")`, or an
 import CLI's npz) with a fresh optimiser; a run whose `exp_dir` holds a
-checkpoint resumes from it. The JAX trainer's mesh (data, sequence and space
-parallelism; ROADMAP §1 item 7) and uint8 images on the wire are refused.
+checkpoint resumes from it.
+
+Data parallelism: in an initialised process group (`parallel/mesh.py::
+join_group`, which the train CLI calls) the group's ranks form the mesh's
+`data` axis. Each rank loads its block of every global batch of
+`batch_size` clips, and the train step sums the gradients over the axis
+(`train/step.py`): the step is the one-process step on the global batch,
+as the JAX trainer's under `MeshSpec(data=N)`. The initial parameters are
+rank 0's; a resume is read by every rank from the same file. Only rank 0
+writes checkpoints and the metrics log and runs the in-training
+evaluation, which the other ranks wait for. The JAX trainer's `seq` and
+`space` axes (ROADMAP §1 item 7.3) and uint8 images on the wire are
+refused.
 """
 
 from __future__ import annotations
@@ -26,11 +39,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ppmstereo_tpu_torch.models.bidastereo import BiDAStereo, BiDAStereoConfig
 from ppmstereo_tpu_torch.models.dynamic_stereo import DynamicStereo, DynamicStereoConfig
 from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 from ppmstereo_tpu_torch.models.stereoanyvideo import StereoAnyVideo, StereoAnyVideoConfig
+from ppmstereo_tpu_torch.parallel.collectives import broadcast_tensors_
+from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+from ppmstereo_tpu_torch.parallel.sharding import local_batch
 from ppmstereo_tpu_torch.train.checkpoints import CheckpointManager
 from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState, param_label
 from ppmstereo_tpu_torch.train.step import to_device, train_step
@@ -44,11 +61,11 @@ from ppmstereo_tpu_torch.utils.weights import load_flax_params, model_to_flax
 class TrainConfig:
     """The JAX package's TrainConfig with its defaults (the shipped recipe).
     model_kwargs: further fields of the model's config (e.g. {"use_cnet":
-    False} for PPMStereo). The mesh (data_parallel, seq_parallel,
-    space_parallel: 0 or 1 each) and wire_uint8 exist for the JAX package's
-    presets; a mesh above one device or uint8 images raise in `train` (the
-    port ships f32 images to the card, as the JAX package's wire_dtype is
-    omitted)."""
+    False} for PPMStereo). data_parallel: the size of the data axis, 0 for
+    the process group's (`data_parallel_size`). seq_parallel and
+    space_parallel above 1, and wire_uint8, exist for the JAX package's
+    presets and raise in `train` (the port ships f32 images to the card, as
+    the JAX package's wire_dtype is omitted)."""
 
     model_name: str = "ppmstereo"
     num_steps: int = 200_000
@@ -66,7 +83,7 @@ class TrainConfig:
     seed: int = 0
     log_freq: int = 100  # running-mean flush interval
     model_kwargs: dict | None = None
-    data_parallel: int = 0  # 0: all devices, which is one here
+    data_parallel: int = 0  # 0: every rank of the process group
     seq_parallel: int = 1
     space_parallel: int = 1
     wire_uint8: bool = False
@@ -74,28 +91,39 @@ class TrainConfig:
 
 def check_supported(cfg: TrainConfig) -> None:
     """Raise for the JAX trainer's options the port does not run."""
-    mesh = {"data_parallel": cfg.data_parallel, "seq_parallel": cfg.seq_parallel,
-            "space_parallel": cfg.space_parallel}
+    mesh = {"seq_parallel": cfg.seq_parallel, "space_parallel": cfg.space_parallel}
     if any(n > 1 for n in mesh.values()):
-        raise NotImplementedError(f"{mesh}: the port trains on one card in one process; DDP "
-                                  "and seq/space training are ROADMAP §1 item 7")
+        raise NotImplementedError(f"{mesh}: the port trains data-parallel only; seq/space "
+                                  "training is ROADMAP §1 item 7.3")
     if cfg.wire_uint8:
         raise NotImplementedError("wire_uint8=True: the port ships f32 images to the card "
                                   "(omitted on purpose, as the predictor's wire_dtype is; "
                                   "ROADMAP §3)")
 
 
-def build_train_model(cfg: TrainConfig) -> tuple[torch.nn.Module, bool]:
+def data_parallel_size(cfg: TrainConfig, world: int) -> int:
+    """The data axis of a run in a group of `world` processes: data_parallel,
+    or for 0 the processes left by seq and space, cut to the largest divisor
+    of batch_size (the JAX trainer's rule over its devices)."""
+    if cfg.data_parallel:
+        return cfg.data_parallel
+    cap = max(1, world // (cfg.seq_parallel * cfg.space_parallel))
+    return max(d for d in range(1, min(cap, cfg.batch_size) + 1) if cfg.batch_size % d == 0)
+
+
+def build_train_model(cfg: TrainConfig, mesh=None) -> tuple[torch.nn.Module, bool]:
     """The train-mode model of `cfg.model_name` (the JAX `build_train_model`'s names and
     config arguments; the time embedding's `num_frames` is the clip length
     for the three models with an SST) and whether it has an uncertainty
-    head. Unknown names raise."""
+    head. Unknown names raise. `mesh` (a data axis) reaches the PPMStereo
+    family, whose batch mean couples the clips; the other models treat each
+    clip alone."""
     name, kwargs = cfg.model_name, cfg.model_kwargs or {}
     precision = {"mixed_precision": cfg.mixed_precision}
     if name in ("ppmstereo", "memstereo", "ppmstereo_vda"):
         vfm = {"use_vfm": True} if name == "ppmstereo_vda" else {}
         mcfg = PPMStereoConfig(num_frames=cfg.sample_len, **precision, **vfm, **kwargs)
-        return PPMStereo(mcfg, cfg.train_iters, test_mode=False), True
+        return PPMStereo(mcfg, cfg.train_iters, test_mode=False, mesh=mesh), True
     if name == "dynamicstereo":
         mcfg = DynamicStereoConfig(num_frames=cfg.sample_len, **precision, **kwargs)
         return DynamicStereo(mcfg, cfg.train_iters, test_mode=False), False
@@ -170,40 +198,60 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
     raises. `max_steps` stops the run early without changing the schedule
     (which spans cfg.num_steps).
 
+    In a process group (data-parallel, see the module's docstring) a
+    caller's `loader` yields global batches and each rank takes its block;
+    the default loader loads the rank's block alone. A data axis that does
+    not span the group raises.
+
     Every save_freq steps after ckpt_after_steps the state is saved and
-    `save_callback(step, state)` runs right after. With enable_eval, every
-    eval_freq steps `run_in_training_eval` scores the current parameters
-    on `eval_dataset`."""
+    `save_callback(step, state)` runs right after (rank 0). With
+    enable_eval, every eval_freq steps `run_in_training_eval` scores the
+    current parameters on `eval_dataset` (rank 0; the others wait at a
+    barrier that the group's timeout bounds)."""
     from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
 
     check_supported(cfg)
     dev = resolve_device(device)
     if dev.type == "cuda":
         set_precision()
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    dp = data_parallel_size(cfg, world)
+    if dp != world:
+        raise ValueError(f"data_parallel={dp} (batch {cfg.batch_size}) needs a process group "
+                         f"of {dp} ranks, one per card (torchrun --nproc_per_node {dp}); "
+                         f"this one has {world}")
+    mesh = make_mesh(MeshSpec(data=dp)) if dp > 1 else None
+    group = mesh.groups["data"] if mesh is not None else None
+    rank = mesh.coords["data"] if mesh is not None else 0
     if loader is None:
         loader = fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
                                   batch_size=cfg.batch_size, num_workers=cfg.num_workers,
-                                  seed=cfg.seed)
-    model, has_uncertainty = build_train_model(cfg)
+                                  seed=cfg.seed, data_rank=rank, data_size=dp)
+    elif mesh is not None:
+        loader = _LocalBlocks(loader, rank, dp)
+    model, has_uncertainty = build_train_model(cfg, mesh)
     init_model(model, cfg.seed)
     model.to(dev)
     state = TrainState(model, TrainOptimizer(model, num_steps=cfg.num_steps, lr=cfg.lr),
-                       has_uncertainty)
+                       has_uncertainty, data_group=group)
     counts = {"train": 0, "frozen": 0}
     for name, p in model.named_parameters():
         counts["frozen" if param_label(name) == "frozen" else "train"] += p.numel()
     logging.info(f"model {cfg.model_name}: {counts['train'] / 1e6:.1f}M trainable and "
                  f"{counts['frozen'] / 1e6:.1f}M frozen params on {dev}, "
-                 f"{'with' if has_uncertainty else 'no'} uncertainty head")
+                 f"{'with' if has_uncertainty else 'no'} uncertainty head"
+                 + (f", rank {rank} of a data axis of {dp}" if dp > 1 else ""))
 
-    ckpt = CheckpointManager(f"{cfg.exp_dir}/ckpt")
+    ckpt = CheckpointManager(f"{cfg.exp_dir}/ckpt", write=rank == 0)
     if ckpt.restore(state):
         logging.info(f"resumed from step {state.step}")
     elif init_params is not None:
         load_flax_params(model, init_params)
         logging.info("seeded params from init_params (fresh optimizer)")
+    if group is not None:  # every rank starts from rank 0's tensors
+        broadcast_tensors_(list(model.parameters()) + list(model.buffers()), group)
 
-    logger = MetricsLogger(cfg.exp_dir, sum_freq=cfg.log_freq)
+    logger = MetricsLogger(cfg.exp_dir, sum_freq=cfg.log_freq, write=rank == 0)
     limit = max_steps if max_steps is not None else cfg.num_steps
     # reading the metrics waits for the device: do it at most every 50 steps
     push_every = max(1, min(50, cfg.log_freq))
@@ -219,12 +267,14 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
                 t_last = now
                 logger.push(state.step, metrics)
             if state.step % cfg.save_freq == 0 and state.step > cfg.ckpt_after_steps:
-                ckpt.save(state)
-                if save_callback is not None:
+                if ckpt.save(state) and save_callback is not None:
                     save_callback(state.step, state)
             if enable_eval and state.step % cfg.eval_freq == 0:
-                run_in_training_eval(cfg, model_to_flax(model), state.step,
-                                     logger, eval_dataset, device=dev)
+                if rank == 0:
+                    run_in_training_eval(cfg, model_to_flax(model), state.step,
+                                         logger, eval_dataset, device=dev)
+                if group is not None:
+                    dist.barrier(group)
             if state.step >= limit:
                 break
         if state.step == start:
@@ -234,3 +284,15 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
     logger.flush(state.step)
     logger.close()
     return state
+
+
+class _LocalBlocks:
+    """A caller's loader of global batches, as this rank's blocks of them
+    (re-iterable when the loader is)."""
+
+    def __init__(self, loader, rank: int, size: int):
+        self.loader, self.rank, self.size = loader, rank, size
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield local_batch(batch, self.rank, self.size)

@@ -1,6 +1,7 @@
 """Training metrics: running means flushed to an append-only JSONL file,
 and to TensorBoard when it can be imported (counterpart of
-ppmstereo_tpu/utils/logging_utils.py::MetricsLogger)."""
+ppmstereo_tpu/utils/logging_utils.py::MetricsLogger). A logger with
+write=False (a rank other than 0 of a data axis) writes nothing."""
 
 from __future__ import annotations
 
@@ -12,13 +13,17 @@ SUM_FREQ = 100
 
 
 class MetricsLogger:
-    def __init__(self, exp_dir: str, sum_freq: int = SUM_FREQ):
-        os.makedirs(exp_dir, exist_ok=True)
+    def __init__(self, exp_dir: str, sum_freq: int = SUM_FREQ, write: bool = True):
         self.path = os.path.join(exp_dir, "metrics.jsonl")
         self.sum_freq = sum_freq
+        self.write = write
         self._last_flush_step: int | None = None
         self.running: dict[str, float] = {}
         self.counts: dict[str, int] = {}
+        self.writer = None
+        if not write:
+            return
+        os.makedirs(exp_dir, exist_ok=True)
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError:  # the tensorboard package is optional
@@ -40,7 +45,9 @@ class MetricsLogger:
 
     def flush(self, step: int) -> None:
         self._last_flush_step = step
-        if not self.running:
+        if not self.running or not self.write:
+            self.running.clear()
+            self.counts.clear()
             return
         means = {k: self.running[k] / max(self.counts[k], 1) for k in self.running}
         with open(self.path, "a") as f:
@@ -54,6 +61,8 @@ class MetricsLogger:
     def write_dict(self, step: int, metrics: dict, prefix: str = "") -> None:
         """Write one record of `metrics` now (keys prefixed), beside the
         running means: the in-training evaluation's results."""
+        if not self.write:
+            return
         rec = {"step": step, "time": time.time()}
         for k, v in metrics.items():
             rec[f"{prefix}{k}"] = float(v)

@@ -321,8 +321,10 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="no frames"):
         tdemo.main(["--device", "cpu", "--left", str(tmp_path), "--right", str(tmp_path),
                     "--iters", "1", "--model_kwargs", "mixed_precision=False"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.2"):
-        tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1"):
+        tcli.main(["--device", "cpu", "MODEL.mesh=1x2x1"])
+    with pytest.raises(RuntimeError, match="needs an initialised torch.distributed"):
+        tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])  # one process, no group
     with pytest.raises(ValueError, match="unknown model 'NoSuchStereoModel'"):
         tcli.main(["--device", "cpu", "MODEL.model_name=NoSuchStereoModel"])
     with pytest.raises(AttributeError, match="no field nope"):

@@ -170,13 +170,20 @@ def test_mesh_layout_and_size_check():
 
 
 def test_space_mesh_is_for_inference_and_other_axes_wait():
-    """No process group is needed to refuse a mesh."""
+    """No process group is needed to refuse a mesh. The data axis is live
+    (tests/test_torch_data_*.py): its batch-mean group reaches every stage;
+    the seq axis waits."""
     coords = {"data": 0, "seq": 0, "space": 0}
     space = Mesh(MeshSpec(space=2), coords, {"data": None, "seq": None, "space": object()})
     with pytest.raises(ValueError, match="inference only"):
         PPMStereo(iters=2, test_mode=False, mesh=space)
-    for spec in (MeshSpec(seq=2), MeshSpec(data=2)):
-        with pytest.raises(NotImplementedError, match="space axis only"):
-            PPMStereo(iters=2, test_mode=True, mesh=Mesh(spec, coords, {}))
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1"):
+        PPMStereo(iters=2, test_mode=True, mesh=Mesh(MeshSpec(seq=2), coords, {}))
+    group = object()
+    data = Mesh(MeshSpec(data=2), coords, {"data": object(), "seq": None, "space": None}, group)
+    for test_mode in (True, False):
+        model = PPMStereo(iters=2, test_mode=test_mode, mesh=data)
+        assert all(getattr(model, f"update_block{s}").data_group is group
+                   for s in ("16", "08", "04"))
     assert PPMStereo(iters=2, test_mode=True, mesh=Mesh(MeshSpec(), coords, {
         "data": None, "seq": None, "space": None})).update_block04.space_group is None

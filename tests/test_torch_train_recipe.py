@@ -11,8 +11,8 @@ miniature dataset trees written as tests/test_torch_readers.py writes them:
   and converts colours in numpy, the JAX package in OpenCV);
 * the train CLI's `--config` (a YAML preset) and `--evaluate_freq`, on the
   CPU;
-* the JAX trainer's options the port refuses (a mesh above one device,
-  uint8 images) raising;
+* the JAX trainer's options the port refuses (a seq or space axis, a data
+  axis without its process group, uint8 images) raising;
 * `train(enable_eval=True, save_callback=...)` on the CPU: the callback
   runs after every periodic save with the port's state, and the
   in-training evaluation dumps its JSON and logs its metrics.
@@ -266,11 +266,15 @@ def test_train_cli_flags_reach_the_config(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,match", [
-    ("data_parallel", 2, r"ROADMAP §1 item 7"), ("seq_parallel", 2, r"ROADMAP §1 item 7"),
-    ("space_parallel", 4, r"ROADMAP §1 item 7"), ("wire_uint8", True, "f32 images")])
+    ("data_parallel", 2, r"needs a process group of 2 ranks"),
+    ("seq_parallel", 2, r"ROADMAP §1 item 7\.3"), ("space_parallel", 4, r"ROADMAP §1 item 7\.3"),
+    ("wire_uint8", True, "f32 images")])
 def test_trainer_refuses_what_it_does_not_run(field, value, match):
+    """A data axis without a process group of its size is a wrong launch
+    (ValueError); seq/space training and uint8 images are not ported."""
     cfg = ttrainer.TrainConfig(**{field: value})
-    with pytest.raises(NotImplementedError, match=match):
+    error = ValueError if field == "data_parallel" else NotImplementedError
+    with pytest.raises(error, match=match):
         ttrainer.train(cfg, device="cpu")
 
 
