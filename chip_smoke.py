@@ -130,6 +130,18 @@ it stopped):
                model_zoo(batch_windows=2, mesh) (kernels 1 and 6 per rank,
                the strict modes' limits), and evaluate_distributed on three
                sequences of unequal length
+  7e. seq      the mesh's seq axis in 2 processes on the one card (gloo,
+               host-staged): the main path's clip through model_zoo(mesh=
+               seq 2), each window of 10 frames spread 5 + 5, the tail of 5
+               whole on both; kernels 1 and 6 launched 20 times a window
+               and rank, seconds per window, bytes received per window
+               (bank, halos, other frames), the disparity and EPE against
+               the main run at the strict modes' limits; the small clip (4
+               frames) in f32 under seq 2 against the card's single-process
+               f32 output at the ring's limit, which zeroed halos and an
+               ungathered bank must exceed, and under seq x space 2 x 2 (4
+               processes, kernel 5) each ringed play step against the
+               unsharded play on its inputs at kernel 1's limits
   8. train     training: `train()` at the shipped TrainConfig() (320x512,
                5 frames, batch 2, 10 iterations, bf16) from the anchor, 4
                steps on one batch of the synthetic fallback, then 2 on fresh
@@ -1644,6 +1656,255 @@ def phase_ring(main_run: dict, small_run: dict, smi: str):
                 launches=readings[0]["counts"]["play_attention_carry"],
                 carry_window_ms=readings[0]["carry_window"]["device_ms"],
                 lookup_launches=readings[0]["counts"]["corr_lookup"])
+
+
+# the seq axis: SEQ_RANKS processes on the one card (gloo, host-staged), as
+# the ring phase runs; each window of the main clip whose frames divide over
+# the axis spreads them (the windows of 10: 5 + 5 frames), the tail of 5
+# runs whole on every process. Then the small parity's clip, cut to
+# SEQ_SMALL_FRAMES frames (a length that divides), in f32: under seq 2
+# against the card's single-process f32 output at the ring's limit
+# (RING_SMALL_TOL), which each planted fault (SEQ_FAULTS) must exceed; and
+# under seq x space = 2 x 2 (4 processes) play step by play step, as the ring
+# phase holds the ring: each ringed play against the unsharded play (kernel
+# 1) on the same inputs at kernel 1's limits. The ring's disparity is not
+# held there: on this clip the space-2 ring alone reads 2.2e-3 px against
+# the single process on an H100 (the CPU 1.8e-4; on the ring phase's
+# 5-frame clip 6.7e-6), and seq x space 2.1e-3 px against that ring, where
+# the CPU reads 8.6e-6 and seq 2 alone 6.7e-6 on the card (not explained
+# yet); those distances are printed. The main run is held to the
+# single-process main run at the strict modes' limits.
+SEQ_RANKS = 2
+SEQ_TIMEOUT_S = 600
+SEQ_SMALL_FRAMES = 4
+SEQ_SMALL_ITERS = 4  # plays: 2 + 2 + 4, every one ringed under seq x space
+SEQ_FAULTS = ("zero_halos", "ungathered_bank")
+
+
+def _zero_halos(sharding):
+    """The fault: every time halo's frames read as zeros (the messages still
+    go, so the processes stay in step)."""
+    import torch
+
+    halo = sharding.FrameShard.halo
+
+    def zeroed(self, x, h):
+        out = halo(self, x, h)
+        edge = torch.zeros_like(out[:, :h])
+        return torch.cat([edge, out[:, h: out.shape[1] - h], edge], dim=1)
+
+    sharding.FrameShard.halo = zeroed
+    return lambda: setattr(sharding.FrameShard, "halo", halo)
+
+
+def _ungathered_bank(sharding):
+    """The fault: the play's bank is not gathered; a picked frame of another
+    process reads as zeros."""
+    gather_bank = sharding.FrameShard.gather_bank
+
+    def local_only(self, x):
+        whole = x.new_zeros(x.shape[0], self.total, *x.shape[2:])
+        whole[:, self.offset: self.offset + self.count] = x
+        return whole
+
+    sharding.FrameShard.gather_bank = local_only
+    return lambda: setattr(sharding.FrameShard, "gather_bank", gather_bank)
+
+
+def _seq_child(rank: int, world: int, spec: tuple, video, small_left, small_right):
+    """One process of the seq phase on a (data, seq, space) = `spec` mesh of
+    all processes: the main path's predictor (when `video` is given; counted,
+    timed, the bytes received over seq counted), then the small clip's f32
+    forward, sound and (with the main path) with each planted fault."""
+    from datetime import timedelta
+
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from functools import partial
+
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig, PPMUpdateLoop
+    from ppmstereo_tpu_torch.models.zoo import model_zoo
+    from ppmstereo_tpu_torch.parallel import collectives, sharding
+    from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
+
+    torch.cuda.set_device(0)
+    mesh = make_mesh(MeshSpec(*spec), timeout=timedelta(seconds=SEQ_TIMEOUT_S))
+    flat = load_npz(ANCHOR)
+    out = dict(staged=collectives.host_staged(mesh.groups["seq"], torch.device("cuda")))
+    if video is not None:
+        pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=flat,
+                         mesh=mesh)
+        window_s: list = []
+        _timed_windows(pred, window_s)
+        torch.cuda.reset_peak_memory_stats()
+        pa.play_attention.launches = kl.corr_lookup_kernel.launches = 0
+        sharding.RECEIVED.update(dict.fromkeys(sharding.RECEIVED, 0))
+        t0 = time.perf_counter()
+        disp = pred({"stereo_video": video})["disparity"]
+        out.update(disparity=disp, seconds=time.perf_counter() - t0, window_s=window_s,
+                   play=pa.play_attention.launches, lookup=kl.corr_lookup_kernel.launches,
+                   received=dict(sharding.RECEIVED),
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+        del pred
+        torch.cuda.empty_cache()
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=SEQ_SMALL_ITERS,
+                      test_mode=True, mesh=mesh)
+    load_flax_params(model, flat)
+    model.cuda().eval()
+    small = {}
+    faults = {"zero_halos": _zero_halos, "ungathered_bank": _ungathered_bank}
+    runs = ("sound", *SEQ_FAULTS) if video is not None else ("sound", "space_only")
+    for run in runs:
+        undo = faults[run](sharding) if run in faults else None
+        if run == "space_only":  # the same space groups, the seq axis left out
+            model.seq_group = None
+        if run == "sound" and video is None:  # each ringed play held as in phase ring
+            out["plays"] = []
+            undo = partial(setattr, PPMUpdateLoop, "_play", _checked_plays(out["plays"]))
+        pa.play_attention_carry.launches = 0
+        try:
+            with torch.no_grad():
+                disp, _ = model(torch.from_numpy(small_left).cuda(),
+                                torch.from_numpy(small_right).cuda())
+        finally:
+            if undo is not None:
+                undo()
+        small[run] = disp.cpu().numpy()
+        if run == "sound":
+            out["small_carry"] = pa.play_attention_carry.launches
+    out["small"] = small
+    return out
+
+
+def phase_seq(main_run: dict, small_run: dict, smi: str):
+    """The mesh's seq axis in SEQ_RANKS processes sharing the card: the main
+    path's clip (its windows' frames spread over the processes) against the
+    single-process main run at the strict modes' limits, kernels 1 and 6
+    launched LAUNCHES_PER_WINDOW times a window and rank, seconds per window
+    and bytes received per window and rank; the small clip in f32 under seq
+    2 against the card's single-process output at the ring's limit, which
+    both planted faults must exceed, and under seq x space 2 x 2 each ringed
+    play step against the unsharded play on its inputs."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
+    from ppmstereo_tpu_torch.parallel.launch import run_group
+    from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
+
+    t_phase = time.perf_counter()
+    left = np.ascontiguousarray(small_run["left"][:, :SEQ_SMALL_FRAMES])
+    right = np.ascontiguousarray(small_run["right"][:, :SEQ_SMALL_FRAMES])
+    model = PPMStereo(PPMStereoConfig(mixed_precision=False), iters=SEQ_SMALL_ITERS,
+                      test_mode=True)
+    load_flax_params(model, load_npz(ANCHOR))
+    model.cuda().eval()
+    with torch.no_grad():
+        small_ref = model(torch.from_numpy(left).cuda(), torch.from_numpy(right).cuda())[0]
+    small_ref = small_ref.cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    results = run_group(_seq_child, SEQ_RANKS, ((1, SEQ_RANKS, 1), main_run["video"], left,
+                                                 right), timeout_s=SEQ_TIMEOUT_S, threads=4)
+    seq_wall_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    spaced = run_group(_seq_child, 2 * SEQ_RANKS, ((1, SEQ_RANKS, 2), None, left, right),
+                       timeout_s=SEQ_TIMEOUT_S, threads=2)
+    space_wall_s = time.perf_counter() - t0
+    ref, gt = main_run["disparity"], main_run["gt"]
+    n_windows = len(main_run["window_s"])
+    want = LAUNCHES_PER_WINDOW * n_windows
+    # the clip's windows whose frames spread: the tail of CLIP_FRAMES - (its
+    # start) frames runs whole where the axis does not divide it
+    starts = range(0, CLIP_FRAMES, WINDOW // 2)
+    lengths = [min(WINDOW, CLIP_FRAMES - s) for s in starts]
+    lengths = [n for i, n in enumerate(lengths) if i == 0 or n >= WINDOW // 2]
+    sharded = sum(1 for n in lengths if n % SEQ_RANKS == 0)
+    small_plays = 2 * (SEQ_SMALL_ITERS // 2) + SEQ_SMALL_ITERS
+    want_carry = 2 * small_plays  # 2 hops a play
+    readings = []
+    for rank, res in enumerate(results):
+        disp = res["disparity"]
+        diff = np.abs(disp - ref)
+        epe = float(np.abs(disp[..., 0] - gt).mean())
+        small = {run: float(np.abs(d - small_ref).max()) for run, d in res["small"].items()}
+        received = {k: v / sharded for k, v in res["received"].items()}
+        r = dict(rank=rank, window_s=res["window_s"], seconds=res["seconds"],
+                 play=res["play"], lookup=res["lookup"], peak_gb=res["peak_gb"],
+                 mean_abs_diff=float(diff.mean()), max_abs_diff=float(diff.max()), epe=epe,
+                 epe_diff=abs(epe - main_run["epe"]), received_per_window=received,
+                 small=small)
+        readings.append(r)
+        log(f"seq rank {rank} of {SEQ_RANKS} on one card ({smi}), "
+            f"{'gloo, host-staged' if res['staged'] else 'device'}: windows "
+            f"{[round(x, 3) for x in res['window_s']]} s ({sharded} of {len(lengths)} "
+            f"sharded), {res['seconds']:.2f} s in the predictor, peak {res['peak_gb']:.2f} GB; "
+            f"launches kernel 1 {res['play']} and kernel 6 {res['lookup']} (expected {want} "
+            f"each); received per sharded window: bank "
+            f"{received['bank'] / 1e6:.1f} MB, halos {received['halo'] / 1e6:.1f} MB, other "
+            f"frames {received['frames'] / 1e6:.1f} MB; against the single process: mean "
+            f"|diff| {r['mean_abs_diff']:.3e} px (tol {STRICT_MEAN_TOL}), max "
+            f"{r['max_abs_diff']:.3e} px, EPE {epe:.4f} px (single process "
+            f"{main_run['epe']:.4f}; tol {STRICT_EPE_TOL}); f32 small clip (1, "
+            f"{SEQ_SMALL_FRAMES}, 64, 128): max |disparity - single process| "
+            f"{small['sound']:.3e} px (tol {RING_SMALL_TOL}), halos zeroed "
+            f"{small['zero_halos']:.3e} px, bank ungathered {small['ungathered_bank']:.3e} px")
+    space_readings = []
+    for rank, res in enumerate(spaced):
+        sound, ring = res["small"]["sound"], res["small"]["space_only"]
+        plays = _play_shares(res["plays"], max)
+        space_readings.append(dict(rank=rank, plays=plays, carry=res["small_carry"],
+                                   ring_max_abs_diff=float(np.abs(sound - ring).max()),
+                                   single_max_abs_diff=float(np.abs(sound - small_ref).max()),
+                                   ring_single_max_abs_diff=float(np.abs(ring - small_ref).max())))
+        log(f"seq x space 2 x 2 rank {rank}, f32 small clip: {plays['calls']} ringed play steps "
+            f"(expected {small_plays}) against the unsharded play on the same inputs, at worst "
+            f"max_abs_err {plays['max_abs_err']:.3e} and mean_abs_err "
+            f"{plays['mean_abs_err']:.3e}, {plays['max_share']:.3f} and "
+            f"{plays['mean_share']:.3f} of their limits; kernel 5 launched "
+            f"{res['small_carry']} times (expected {want_carry}); max |disparity| against the "
+            f"single process {space_readings[-1]['single_max_abs_diff']:.3e} px, against the "
+            f"space-2 ring {space_readings[-1]['ring_max_abs_diff']:.3e} px (the space-2 ring "
+            f"against the single process {space_readings[-1]['ring_single_max_abs_diff']:.3e} "
+            f"px)")
+    log(f"seq phase: {time.perf_counter() - t_phase:.1f} s ({seq_wall_s:.1f} s for the seq "
+        f"group, {space_wall_s:.1f} s for the seq x space group, with process start); "
+        f"processes sharing one card: time-sharing, not a scaling result")
+    for r, res in zip(readings, results):
+        disp = res["disparity"]
+        if disp.shape != ref.shape or not np.isfinite(disp).all():
+            raise RuntimeError(f"seq rank {r['rank']}: disparity of shape {disp.shape} "
+                               f"(want {ref.shape}) or non-finite")
+        if not res["staged"]:
+            raise RuntimeError("the seq phase expects a gloo group staged through the host")
+        if r["play"] != want or r["lookup"] != want:
+            raise RuntimeError(f"seq rank {r['rank']}: kernel 1 / 6 launches {r['play']} / "
+                               f"{r['lookup']}, expected {want}")
+        if not (r["mean_abs_diff"] <= STRICT_MEAN_TOL and r["epe_diff"] <= STRICT_EPE_TOL):
+            raise RuntimeError(f"seq rank {r['rank']}: the windows differ from the single "
+                               f"process's: mean {r['mean_abs_diff']:.3e} px, EPE "
+                               f"{r['epe_diff']:.3e} px")
+        if not r["small"]["sound"] <= RING_SMALL_TOL:
+            raise RuntimeError(f"seq rank {r['rank']}: the f32 small clip differs from the "
+                               f"single process by {r['small']['sound']:.3e} px")
+        for fault in SEQ_FAULTS:
+            if not r["small"][fault] > RING_SMALL_TOL:
+                raise RuntimeError(f"the seq limit does not catch the fault {fault}: "
+                                   f"{r['small'][fault]:.3e} px")
+    for s in space_readings:
+        plays = s["plays"]
+        if s["carry"] != want_carry or plays["calls"] != small_plays or not (
+                plays["max_share"] <= 1 and plays["mean_share"] <= 1):
+            raise RuntimeError(f"seq x space rank {s['rank']}: {s}, expected {small_plays} "
+                               f"ringed plays within kernel 1's limits and {want_carry} "
+                               "kernel 5 launches")
+    return dict(readings=readings, space=space_readings, seq_wall_s=seq_wall_s,
+                space_wall_s=space_wall_s, play_launches=readings[0]["play"],
+                lookup_launches=readings[0]["lookup"], carry_launches=space_readings[0]["carry"])
 
 
 # the data phase: the mesh's data axis over DATA_RANKS processes sharing the
@@ -4076,6 +4337,8 @@ def main() -> None:
         ring_run = phase_ring(main_run, small_run, smi)
     with phase("data"):
         data_run = phase_data(smi)
+    with phase("seq"):
+        seq_run = phase_seq(main_run, small_run, smi)
     with phase("train"):
         train_run = phase_train(smi)
         train_run["recipe"] = phase_train_recipe(smi)
@@ -4090,7 +4353,9 @@ def main() -> None:
     # kernel 6 on the inference path's, the VDA family's and the ring path's
     # runs (rank 0; test mode), summed with the training path's (0: train
     # mode runs the plain lookup); the data path's rank 0 (its windows for
-    # kernels 1 and 6, its train steps for kernels 2-4) adds to each. Each
+    # kernels 1 and 6, its train steps for kernels 2-4) adds to each, and so
+    # do the seq path's rank 0 (its windows for kernels 1 and 6) and its
+    # seq x space rank 0 (the small clip's ringed plays for kernel 5). Each
     # path is driven with its counts set to 0 just before. Kernels 1 and 6
     # in the modes and eval paths' runs sit beside them.
     vda_play = sum(run["play_launches"] for run in vda_run.values())
@@ -4099,12 +4364,15 @@ def main() -> None:
               + train_run["launches"]["corr_lookup"])
     train_zoo_launches = {k: sum(train_zoo_run[name]["launches"][k] for name in ZOO_TRAIN_MODELS)
                           for k in train_run["launches"]}
-    lookup += train_zoo_launches["corr_lookup"] + data_run["lookup_launches"]
+    lookup += (train_zoo_launches["corr_lookup"] + data_run["lookup_launches"]
+               + seq_run["lookup_launches"])
     train_launches = {k: n + train_zoo_launches[k] + data_run["launches"][k]
                       for k, n in train_run["launches"].items()}
     launches = dict(train_launches,
-                    play_attention_fwd=main_run["launches"] + vda_play + data_run["play_launches"],
-                    play_attention_carry=ring_run["launches"], corr_lookup=lookup)
+                    play_attention_fwd=(main_run["launches"] + vda_play + data_run["play_launches"]
+                                        + seq_run["play_launches"]),
+                    play_attention_carry=ring_run["launches"] + seq_run["carry_launches"],
+                    corr_lookup=lookup)
     records = [kernel_record(key, name, source, replaces, rows[key], launches[name])
                for key, name, source, replaces in _KERNEL_RECORDS]
     for record, library in zip(records, ("play_attention_fwd", "play_attention_fwd",
@@ -4145,6 +4413,10 @@ def main() -> None:
                                             for r in data_run["readings"]]
     for record, key in ((records[0], "play"), (records[5], "lookup")):
         record["launches_data_windows"] = [r[key] for r in data_run["readings"]]
+        # per rank of the seq phase, over the main clip's windows
+        record["launches_seq"] = [r[key] for r in seq_run["readings"]]
+    # per rank of the seq x space run of the seq phase (the small clip)
+    records[4]["launches_seq_space"] = [r["carry"] for r in seq_run["space"]]
     log(f"total {time.perf_counter() - _T0:.1f}s")
     print(smi, flush=True)
     print(json.dumps({"kernels": records}), flush=True)

@@ -21,18 +21,21 @@ literal-evaluated) reaches the model zoo: the window modes (warm_start,
 warm_iters, encoder_cache: PPMStereoModel only) and every field of the
 model's config (mixed_precision, use_cnet, top_k, corr_radius, ...).
 
-MODEL.mesh ("DxSxP", data x seq x space) runs the evaluation in D x P
+MODEL.mesh ("DxSxP", data x seq x space) runs the evaluation in D x S x P
 processes, one per card, under torchrun:
 
     torchrun --nproc_per_node 2 -m ppmstereo_tpu_torch.cli.evaluate \
         --config ppmstereo_tpu_torch/configs/eval_dynamic_replica_40_frames.yaml \
         MODEL.mesh=2x1x1 MODEL.batch_windows=2
+    torchrun --nproc_per_node 4 -m ppmstereo_tpu_torch.cli.evaluate \
+        --config ppmstereo_tpu_torch/configs/eval_dynamic_replica_40_frames.yaml \
+        MODEL.mesh=1x2x2
 
 Every rank runs the evaluator on every sequence: the windows of a
-MODEL.batch_windows batch spread over `data`, and `space` rings
-PPMStereoModel's play steps (the JAX CLI's mesh); rank 0 writes the
-results. The processes join the launch's group as the train CLI's do
-(`parallel/mesh.py::join_group`). S > 1 raises (ROADMAP §1 item 7.1).
+MODEL.batch_windows batch spread over `data`, each window's frames over
+`seq` (PPMStereoModel), and `space` rings PPMStereoModel's play steps (the
+JAX CLI's mesh); rank 0 writes the results. The processes join the
+launch's group as the train CLI's do (`parallel/mesh.py::join_group`).
 """
 
 from __future__ import annotations
@@ -161,13 +164,13 @@ def load_checkpoint(predictor, path: str) -> None:
 
 
 def parse_mesh(spec: str):
-    """"DxSxP" -> MeshSpec(D, S, P); S > 1 raises."""
+    """"DxSxP" -> MeshSpec(D, S, P)."""
     from ppmstereo_tpu_torch.parallel.mesh import MeshSpec
 
-    data, seq, space = (int(x) for x in spec.split("x"))
-    if seq > 1:
-        raise NotImplementedError(f"MODEL.mesh={spec}: the seq axis of a window is ROADMAP §1 "
-                                  "item 7.1; the port shards data and space")
+    sizes = spec.split("x")
+    if len(sizes) != 3 or not all(x.isdigit() and int(x) > 0 for x in sizes):
+        raise ValueError(f"MODEL.mesh={spec}: want DxSxP, three positive sizes")
+    data, seq, space = (int(x) for x in sizes)
     return MeshSpec(data=data, seq=seq, space=space)
 
 
@@ -220,7 +223,7 @@ def main(argv=None):
     else:
         cfg = apply_overrides(DefaultConfig(), args.overrides)
     if cfg.MODEL.mesh:
-        parse_mesh(cfg.MODEL.mesh)  # refuse a seq axis before joining a group
+        parse_mesh(cfg.MODEL.mesh)  # refuse a malformed mesh before joining a group
     import torch.distributed as dist
 
     from ppmstereo_tpu_torch.parallel.mesh import join_group

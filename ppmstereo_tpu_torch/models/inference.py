@@ -24,7 +24,11 @@ axis, as the JAX predictor's `_sharding(batched=True)` lays it out: each
 rank runs its block of the batch, and the outputs are all-gathered. A batch
 that the axis does not divide raises, as the JAX sharding does; a single
 window, and every window of the warm and encoder-cache modes, runs whole on
-every rank. The JAX package's
+every rank. Under a mesh's `seq` axis the model itself spreads each
+window's frames over the axis (`models/ppm_stereo.py`; a window whose
+length the axis does not divide runs whole on every rank of it) and
+returns the whole window, so the predictor, its modes and its stitching
+are the same; every rank calls it on the same video. The JAX package's
 `wire_dtype`, `max_inflight_windows` and per-window-shape jit serve XLA and
 the TPU's host link and have no counterpart here.
 """

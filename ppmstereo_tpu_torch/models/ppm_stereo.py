@@ -29,6 +29,40 @@ near-tie of frame scores cannot split the processes. This is the JAX
 package's ring path (`ring_attention=True` under a `space` mesh) with its
 divisibility rule; the rest of the window is not sharded here.
 
+Under a mesh whose `seq` axis has S > 1 processes (test mode only), the
+frames of a window whose T divides by S spread over the axis: process s
+runs frames [s T/S, (s+1) T/S) through the encoders, SST and the three
+stages, and the outputs are all-gathered, so every process returns the
+whole window. Per-frame work needs no message: the encoders, SST's self
+and cross layers, the pyramid and its lookup (kernel 6), the motion
+encoder, the uncertainty head, the space attention and `batch_mean`. What
+mixes frames exchanges them (`parallel/sharding.py::FrameShard`):
+  * the 3-D convolutions (the GRU's time pass, the flow head, the 3x3x3
+    mask head) and the 3-D convex upsample take a time halo from the
+    neighbouring blocks, zero frames past the clip's ends;
+  * the 1/16 time attention (SST's and the first stage's) runs on the
+    gathered window at that small size;
+  * the time embedding and the temporal PE are the whole window's, sliced
+    at this process's frames;
+  * the frame similarity gathers the pooled query descriptors, and the
+    pick gathers the frame confidences: the scores of this process's
+    target frames over all T source frames, the top-k over all T;
+  * the play gathers its memory bank, the keys once a stage and the
+    values once an iteration (the JAX package's one bank gather,
+    `_replicate_bank_over_seq`), and this process's queries attend over
+    the picked frames, whichever process computed them.
+A window whose T does not divide by S runs whole on every process of the
+axis (the JAX predictor's rule for tail windows). What one seq = 2 window
+at 320x512 in bf16 (the shipped config) gathers: the 1/4 stage's values,
+10 x 80 x 128 x 128 x 2 B = 26.2 MB per iteration (each process receives
+the other's half, 13.1 MB), and its keys with the PE (2C = 256 channels),
+52.4 MB per stage (26.2 MB received); the 1/8 stage a quarter of that, the
+1/16 stage a sixteenth. The halos add, per iteration and stage, two frames
+of the GRU's 512-channel input and of its 128-channel r * h and one frame
+of the flow head's 128- and 256-channel inputs, and once a stage one frame
+of the mask head's and the upsample's inputs. Under seq x space each
+process's frames ring their play steps over its space group.
+
 Under a mesh whose `data` axis has n > 1 processes (test and train mode),
 each process runs its block of the global batch. The one op that couples a
 batch's clips is the normalisation of the picked frames' scores by their
@@ -89,6 +123,7 @@ from ppmstereo_tpu_torch.ops.geometry import (
 )
 from ppmstereo_tpu_torch.ops.upsample import convex_upsample_2d, convex_upsample_3d
 from ppmstereo_tpu_torch.parallel import collectives, ring_attention
+from ppmstereo_tpu_torch.parallel.sharding import frame_shard
 
 
 SHIPPED_ATTENTION = "self_stereo_temporal_update_time_update_space"
@@ -260,9 +295,12 @@ class PPMUpdateLoop(nn.Module):
         return out.reshape(b, t, h, w, c).to(self.dtype)
 
     def _iteration(self, stage, flow, net, motion_hidden, strive, picked: list,
-                   picks: list | None):
+                   picks: list | None, shard=None):
         """One pick-and-play iteration. `stage` holds the loop-invariant
         inputs (pyramid, coords0, query_pe, key_aug, sim_score, inp).
+        Under a seq `shard` (test mode) the tensors hold this rank's frames,
+        except key_aug, the whole window's (gathered once a stage), and the
+        scores' and strive's source axis, the window's T frames.
 
         picked (train mode): the iteration's top-k indices; empty on the
         first evaluation, which fills it, and reused by the recomputation.
@@ -273,6 +311,7 @@ class PPMUpdateLoop(nn.Module):
         radius = self.cfg.corr_radius
         ub = self.update_block
         b, t, h, w, _ = flow.shape
+        t_all = t if shard is None else shard.total  # the frames a target may pick
         # 1. pyramid lookup around the current disparity (f32 blend, features
         # in `dtype`): the kernel in test mode, the differentiable plain
         # lookup in train mode (collect_preds)
@@ -287,8 +326,10 @@ class PPMUpdateLoop(nn.Module):
             flow.to(dtype), corrs, motion_hidden)
         # 3. quality scores
         uncertainty = ub.get_uncertainty(torch.cat([net, value], dim=-1))
-        penalty = torch.exp(-strive / (strive.sum(-1, keepdim=True) + t))
+        penalty = torch.exp(-strive / (strive.sum(-1, keepdim=True) + t_all))
         frame_conf = uncertainty.float().mean(dim=(2, 3, 4))  # (B, T)
+        if shard is not None:  # every source frame's confidence
+            frame_conf = shard.gather(frame_conf)
         frame_score = penalty * sim_score + frame_conf[:, None, :]
         # 4. pick the top-k frames per target frame (clips shorter than
         # top_k pick every frame), count their use. A train-mode iteration
@@ -296,17 +337,20 @@ class PPMUpdateLoop(nn.Module):
         # the same picks: both evaluations gather the selected scores (topk's
         # values and gradient) at the indices the first one chose
         if not picked:
-            idx = torch.topk(frame_score.detach(), min(self.cfg.top_k, t), dim=-1).indices
+            idx = torch.topk(frame_score.detach(), min(self.cfg.top_k, t_all), dim=-1).indices
             if self.space_group is not None:  # one set of picks for the ring
                 idx = collectives.broadcast_from_first(idx, self.space_group)
             picked.append(idx)
             if picks is not None:
-                picks.append(picked[0])
+                picks.append(picked[0] if shard is None else shard.gather(picked[0]))
         idx = picked[0]
         sel_score = frame_score.gather(-1, idx)
-        strive = strive + F.one_hot(idx, t).sum(dim=-2).float()
+        strive = strive + F.one_hot(idx, t_all).sum(dim=-2).float()
         score_norm = sel_score / batch_mean(sel_score, self.data_group)
-        # 5. play: attend over the picked memory
+        # 5. play: attend over the picked memory (under seq, the picks index
+        # the whole window's bank)
+        if shard is not None:
+            value = shard.gather_bank(value)
         hidden_states = self._play(query_pe, key_aug, value, idx, score_norm)
         motion_global = motion + ub.aggregator.beta.to(dtype) * hidden_states
         # 6. GRU update and flow head (and, in train mode, the convex mask
@@ -314,14 +358,14 @@ class PPMUpdateLoop(nn.Module):
         if self.collect_preds:
             net, delta, mask = ub(net, inp, motion, motion_global, compute_mask=True)
         else:
-            (net, delta), mask = ub(net, inp, motion, motion_global), None
+            (net, delta), mask = ub(net, inp, motion, motion_global, shard=shard), None
         flow = flow + delta.float()
         return flow, net, motion_hidden, strive, uncertainty, mask
 
-    def _upsample(self, flow, mask):
+    def _upsample(self, flow, mask, shard=None):
         """The convex upsample by 4: 3-D, or per frame (`use_convex_3d=False`)."""
         if self.cfg.use_convex_3d:
-            return convex_upsample_3d(flow, mask, rate=4)
+            return convex_upsample_3d(flow, mask, rate=4, shard=shard)
         b, t, h, w, _ = flow.shape
         up = convex_upsample_2d(flow.reshape(b * t, h, w, 2), mask.reshape(b * t, h, w, -1), 4)
         return up.reshape(b, t, 4 * h, 4 * w, 2)
@@ -342,17 +386,22 @@ class PPMUpdateLoop(nn.Module):
 
     def forward(self, pyramid, coords0, query_pe, key_aug, sim_score,
                 flow, net, inp, motion_hidden, picks: list | None = None,
-                iters: int | None = None):
+                iters: int | None = None, shard=None):
         """Returns (flow, flow_up, net, motion_hidden, last uncertainty,
         predictions, uncertainties); the last two are (iters, B, T, H, W, 1)
         at full resolution in train mode and None in test mode.
 
         picks: when a list is given, each iteration's top-k frame indices
         are appended to it (the tests compare them with the JAX model's).
-        iters: this call's iteration count (default: the stage's)."""
+        iters: this call's iteration count (default: the stage's).
+        shard: this rank's frames of a window over the seq axis (test mode;
+        `parallel/sharding.py::FrameShard`), None for the whole window."""
         b, t, _, _, _ = flow.shape
+        t_all = t
+        if shard is not None:  # the bank's keys do not change across the loop
+            key_aug, t_all = shard.gather_bank(key_aug), shard.total
         stage = (pyramid, coords0, query_pe, key_aug, sim_score, inp)
-        strive = torch.ones(b, t, t, device=flow.device)
+        strive = torch.ones(b, t, t_all, device=flow.device)
         uncertainty = mask = None
         preds, uncs = [], []
         run = self._iteration
@@ -363,14 +412,14 @@ class PPMUpdateLoop(nn.Module):
         for _ in range(self.iters if iters is None else iters):
             picked: list = []
             flow, net, motion_hidden, strive, uncertainty, mask = run(
-                stage, flow, net, motion_hidden, strive, picked, picks)
+                stage, flow, net, motion_hidden, strive, picked, picks, shard)
             if self.collect_preds:
                 pred, unc = self._full_res(flow, mask, uncertainty)
                 preds.append(pred)
                 uncs.append(unc)
         if mask is None:  # test mode reads the mask of the final state only
-            mask = self.update_block.get_mask(net)
-        flow_up = self._upsample(flow, mask)
+            mask = self.update_block.get_mask(net, shard)
+        flow_up = self._upsample(flow, mask, shard)
         if not self.collect_preds:
             return flow, flow_up, net, motion_hidden, uncertainty, None, None
         return (flow, flow_up, net, motion_hidden, uncertainty,
@@ -395,18 +444,26 @@ class PPMStereo(nn.Module):
     mesh (`parallel/mesh.py`): with a `space` axis of n > 1 processes, the
     play steps run as the ring over it (test mode only); with a `data` axis
     of n > 1, each process runs its block of the global batch and the
-    picked scores' batch mean is the global batch's (test and train mode).
-    The seq axis is not ported and must be 1."""
+    picked scores' batch mean is the global batch's (test and train mode);
+    with a `seq` axis of S > 1 (test mode only), a window whose T divides
+    by S spreads its frames over it (see the module's docstring)."""
 
     def __init__(self, cfg: PPMStereoConfig = PPMStereoConfig(), iters: int = 10,
                  test_mode: bool = False, mesh=None):
         super().__init__()
-        space_group = data_group = None
+        space_group = data_group = seq_group = None
         if mesh is not None:
             if mesh.shape["seq"] > 1:
-                raise NotImplementedError(
-                    f"mesh {mesh.shape}: the port shards the data and space axes; the seq "
-                    "axis of a window is ROADMAP §1 item 7.1")
+                if not test_mode:
+                    raise NotImplementedError(
+                        f"mesh {mesh.shape}: the seq axis in training is ROADMAP §1 item 7.3; "
+                        "it runs in test mode")
+                if cfg.use_vfm:
+                    raise NotImplementedError(
+                        f"mesh {mesh.shape}: PPMStereo-VDA's backbone attends across a "
+                        "window's frames (nn/vda/motion.py); its seq axis is ROADMAP §1 "
+                        "item 7.1b")
+                seq_group = mesh.groups["seq"]
             if mesh.shape["space"] > 1:
                 if not test_mode:
                     raise ValueError("the ring play attention is inference only: a mesh "
@@ -416,6 +473,7 @@ class PPMStereo(nn.Module):
                 data_group = mesh.batch_group
         self.cfg = cfg
         self.test_mode = test_mode
+        self.seq_group = seq_group  # the frames' process group, or None
         self.dtype = dtype = cfg.dtype
         if cfg.use_vfm:
             self.fnet = MultiLevelEncoderVFM(
@@ -440,27 +498,36 @@ class PPMStereo(nn.Module):
         self.update_block04 = PPMUpdateLoop(cfg, iters, collect_preds=train,
                                             space_group=space_group, data_group=data_group)
 
-    def compute_qk_similarity(self, query, key):
+    def compute_qk_similarity(self, query, key, shard=None):
         """Cosine similarity of pooled per-frame descriptors:
-        (B,T,H,W,C) -> (B,T,T)."""
+        (B,T,H,W,C) -> (B,T,T), [b, target i, source j] = cos(q_j, k_i).
+        Under a seq `shard` the rows are this rank's target frames and the
+        query descriptors are gathered: (B, T/S, T)."""
         b, t, h, w, _ = query.shape
         oh, ow = max(h // 4, 1), max(w // 4, 1)
         qv = adaptive_max_pool2d(query.float(), (oh, ow)).mean(dim=-1).reshape(b, t, oh * ow)
         kv = adaptive_max_pool2d(key.float(), (oh, ow)).mean(dim=-1).reshape(b, t, oh * ow)
+        if shard is not None:
+            qv = shard.gather(qv)
         return cosine_similarity_matrix(qv, kv)
 
-    def _stage_inputs(self, stage: int, fmap1, fmap2, inp):
+    def _stage_inputs(self, stage: int, fmap1, fmap2, inp, shard=None):
         """Correlation pyramid, coordinates, q/k with the temporal PE, and
-        the frame similarity of one stage."""
+        the frame similarity of one stage (this rank's frames under a seq
+        `shard`, the PE at their places in the window)."""
         b, t, h, w, _ = fmap1.shape
         pyramid = build_corr_pyramid(fmap1.reshape(b * t, h, w, -1),
                                      fmap2.reshape(b * t, h, w, -1),
                                      self.cfg.corr_levels)
         coords0 = coords_grid_x(b * t, h, w, device=fmap1.device)
         query, key = getattr(self, f"att_{stage}")(inp)
-        sim_score = self.compute_qk_similarity(query, key)
-        te = torch.from_numpy(temporal_positional_encoding(t, self.cfg.context_dim))
-        te_b = te.to(fmap1.device, self.dtype)[None, :, None, None, :]
+        sim_score = self.compute_qk_similarity(query, key, shard)
+        if shard is None:
+            te = temporal_positional_encoding(t, self.cfg.context_dim)
+        else:
+            te = temporal_positional_encoding(shard.total, self.cfg.context_dim)
+            te = te[shard.offset: shard.offset + t]
+        te_b = torch.from_numpy(te).to(fmap1.device, self.dtype)[None, :, None, None, :]
         key_aug = torch.cat([key, te_b.expand(key.shape)], dim=-1)
         query_pe = query + te_b
         return pyramid, coords0, query_pe, key_aug, sim_score
@@ -527,9 +594,15 @@ class PPMStereo(nn.Module):
         return torch.tanh(net), F.relu(inp)
 
     def forward(self, image1, image2, flow_init=None, feats: dict | None = None,
-                warm_iters: int | None = None, picks: list | None = None):
+                warm_iters: int | None = None, picks: list | None = None,
+                frames_per_call: int | None = None):
         """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty)
         in test mode, (predictions, uncertainties) in train mode.
+
+        Under a seq mesh every process passes the whole window (and the
+        whole window's feats and flow_init) and gets the whole window's
+        outputs; a window whose T divides by the axis runs this process's
+        frames (see the module's docstring).
 
         feats: the per-frame features of `encode_frames` for these frames
         (the encoder cache of the sliding-window predictor assembles them
@@ -545,16 +618,35 @@ class PPMStereo(nn.Module):
         Train mode then returns the 1/4 loop's predictions only.
 
         picks: optional list that collects every iteration's top-k indices,
-        stage by stage."""
+        stage by stage (the whole window's under a seq mesh).
+
+        frames_per_call: the encoders' frames a call when feats is None
+        (`encode_frames`)."""
         if warm_iters is not None and flow_init is None:
             raise ValueError("warm_iters applies to a warm start: pass flow_init")
+        shard = frame_shard(image1.shape[1], self.seq_group)
+        if shard is not None:  # this process's frames of the window
+            image1, image2 = shard.local(image1), shard.local(image2)
+            if feats is not None:
+                feats = {name: shard.local(v) for name, v in feats.items()}
+            if flow_init is not None:
+                flow_init = shard.local(flow_init)
+        outs = self._forward(image1, image2, flow_init, feats, warm_iters, picks,
+                             frames_per_call, shard)
+        if shard is None:
+            return outs
+        return tuple(shard.gather(x.contiguous()) for x in outs)
+
+    def _forward(self, image1, image2, flow_init, feats, warm_iters, picks, frames_per_call,
+                 shard):
+        """`forward` on this process's frames (`shard`; None: the window's)."""
         vfm = None
         if self.cfg.use_vfm:
             if feats is not None:
                 raise ValueError("feats= does not support use_vfm")
             feats, vfm = self._vfm_features(image1, image2)
         elif feats is None:
-            feats = self.encode_frames(image1, image2)
+            feats = self.encode_frames(image1, image2, frames_per_call)
         fmap1, fmap2 = feats["fmap1"], feats["fmap2"]
         b, t, h4, w4, _ = fmap1.shape
         net, inp = self._context(fmap1, feats.get("cnet4"))
@@ -567,14 +659,14 @@ class PPMStereo(nn.Module):
             # stages inherit the state in the cold cascade)
             mh4 = self.update_block16.update_block.init_motion_hidden_state(inp)
             _, flow_up4, _, _, unc_last, p4, u4 = self.update_block04(
-                *self._stage_inputs(2, fmap1, fmap2, inp), flow4, net, inp, mh4,
-                picks=picks, iters=warm_iters)
+                *self._stage_inputs(2, fmap1, fmap2, inp, shard), flow4, net, inp, mh4,
+                picks=picks, iters=warm_iters, shard=shard)
             if not self.test_mode:
                 return p4, u4
             return flow_up4[..., :1], interp_ac_false(unc_last.float(), (4 * h4, 4 * w4))
 
         if vfm is None:
-            f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4))
+            f1_16, f2_16 = self.sst(avg_pool2d(fmap1, 4), avg_pool2d(fmap2, 4), shard)
         else:
             f1_16, f2_16 = self.sst(*vfm["f16"])
         net16, inp16 = self._context(f1_16, feats.get("cnet16"))
@@ -590,22 +682,22 @@ class PPMStereo(nn.Module):
         flow16 = torch.zeros(b, t, h4 // 4, w4 // 4, 2, device=fmap1.device)
         mh16 = self.update_block16.update_block.init_motion_hidden_state(inp16)
         _, flow_up16, net16, mh16, _, p16, u16 = self.update_block16(
-            *self._stage_inputs(0, f1_16, f2_16, inp16), flow16, net16, inp16, mh16,
-            picks=picks)
+            *self._stage_inputs(0, f1_16, f2_16, inp16, shard), flow16, net16, inp16, mh16,
+            picks=picks, shard=shard)
         # stage 1/8
         flow8 = -(h8 / flow_up16.shape[2]) * interp_bilinear(flow_up16, (h8, w8))
         mh8 = interp_bilinear(mh16, (h8, w8))
         net8 = (net8 + interp_bilinear(net16, (h8, w8))) / 2.0
         _, flow_up8, net8, mh8, _, p8, u8 = self.update_block08(
-            *self._stage_inputs(1, f1_8, f2_8, inp8), flow8, net8, inp8, mh8,
-            picks=picks)
+            *self._stage_inputs(1, f1_8, f2_8, inp8, shard), flow8, net8, inp8, mh8,
+            picks=picks, shard=shard)
         # stage 1/4
         flow4 = -(h4 / flow_up8.shape[2]) * interp_bilinear(flow_up8, (h4, w4))
         mh4 = interp_bilinear(mh8, (h4, w4))
         net = (net + interp_bilinear(net8, (h4, w4))) / 2.0
         _, flow_up4, _, _, unc_last, p4, u4 = self.update_block04(
-            *self._stage_inputs(2, fmap1, fmap2, inp), flow4, net, inp, mh4,
-            picks=picks)
+            *self._stage_inputs(2, fmap1, fmap2, inp, shard), flow4, net, inp, mh4,
+            picks=picks, shard=shard)
 
         if not self.test_mode:
             return torch.cat([p16, p8, p4]), torch.cat([u16, u8, u4])

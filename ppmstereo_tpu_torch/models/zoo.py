@@ -16,8 +16,9 @@ The window modes of `models/inference.py` are keyword arguments:
 `mesh` (`parallel/mesh.make_mesh`, every process of it calling the
 predictor on the same video): over its `data` axis the windows of a
 `batch_windows` batch spread over the processes, for every model; the
-`space` axis rings PPMStereoModel's play steps. The `seq` axis, and
-`space` for the other models, raise.
+`seq` axis spreads each of PPMStereoModel's windows' frames, and the
+`space` axis rings its play steps. `seq` and `space` for the other models
+raise (ROADMAP §1 item 7.1b).
 """
 
 from __future__ import annotations
@@ -122,13 +123,15 @@ class StereoVideoPredictor:
         def encode(left, right):
             return model.encode_frames(left, right, frames_per_call=chunk)
 
+        # the model encodes the window's frames itself (under a seq mesh
+        # only this process's frames), in calls of `chunk` frames
         def window_fn(left, right):
-            return model(left, right, feats=encode(left, right))
+            return model(left, right, frames_per_call=chunk)
 
         warm_fn = enc_fn = body_fn = warm_body_fn = None
         if warm_start:
             def warm_fn(left, right, flow_init):
-                return model(left, right, flow_init=flow_init, feats=encode(left, right),
+                return model(left, right, flow_init=flow_init, frames_per_call=chunk,
                              warm_iters=warm_iters)
         if encoder_cache:
             enc_fn = encode
@@ -173,7 +176,10 @@ def _build_ppm(kernel_size: int = 20, iters: int = 20,
     predictor on the same video and returns the whole stitched video. With
     a `space` axis of n > 1 the play steps run as the ring over it; with a
     `data` axis of n > 1 a batch of `batch_windows` windows spreads over it
-    (the model's batch mean of the picked scores is the whole batch's)."""
+    (the model's batch mean of the picked scores is the whole batch's);
+    with a `seq` axis of S > 1 each window's frames spread over it, in
+    every window mode, a window whose length S does not divide running
+    whole on every process of the axis."""
     cfg = PPMStereoConfig(**cfg_kwargs)
     dev = resolve_device(device)
     if dev.type == "cuda":
@@ -197,7 +203,8 @@ def _build_ppm_vda(kernel_size: int = 20, iters: int = 20,
     **cfg_kwargs)` (bf16 and the ViT-S backbone by default), in test mode;
     the other arguments as for PPMStereoModel. It has no per-frame encoders,
     so warm_start and encoder_cache raise, as the JAX package's constructor
-    takes neither."""
+    takes neither. A mesh's seq axis raises (ROADMAP §1 item 7.1b: the
+    backbone attends across the window's frames)."""
     cfg = PPMStereoConfig(use_vfm=True, use_cnet=True, **cfg_kwargs)
     model = PPMStereo(cfg, iters, test_mode=True, mesh=mesh)
     return _build_baseline(model, kernel_size, params, seed, device, fast_mode, batch_windows,
@@ -213,7 +220,8 @@ def _data_group(mesh, model_name: str | None = None):
     if model_name is not None and (mesh.shape["seq"] > 1 or mesh.shape["space"] > 1):
         raise NotImplementedError(
             f"mesh {mesh.shape}: {model_name} spreads windows over the data axis only; the "
-            "space ring is PPMStereoModel's, and the seq axis is ROADMAP §1 item 7.1")
+            "space ring and the seq axis are PPMStereoModel's, and the rest of the zoo's are "
+            "ROADMAP §1 item 7.1b")
     return mesh.groups["data"]
 
 

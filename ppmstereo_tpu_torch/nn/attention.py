@@ -142,7 +142,13 @@ class TimeAttnBlock(nn.Module):
             self.temporal_fc.weight.zero_()
             self.temporal_fc.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """shard: this rank's frames of a window over the seq axis
+        (`parallel/sharding.py::FrameShard`; None: the whole window). Every
+        frame attends over all the window's frames, so the block runs on the
+        gathered window and keeps this rank's frames (small at 1/16)."""
+        if shard is not None:
+            return shard.local(self(shard.gather(x)))
         b, t, h, w, c = x.shape
         tokens = x.permute(0, 2, 3, 1, 4).reshape(b * h * w, t, c)
         y = _degenerate_attention(self.LayerNorm_0(tokens), self.num_heads)

@@ -53,13 +53,14 @@ class ConvND(nn.Module):
             if self.bias is not None:
                 self.bias.uniform_(-bound, bound)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, padding: tuple | None = None) -> torch.Tensor:
+        """padding: this call's, in place of the layer's."""
         lead = x.shape[: x.dim() - self.nd - 1]
         x = x.reshape(-1, *x.shape[x.dim() - self.nd - 1:]).movedim(-1, 1)
         conv = F.conv2d if self.nd == 2 else F.conv3d
         bias = None if self.bias is None else self.bias.to(self.dtype)
         y = conv(x.to(self.dtype), self.weight.to(self.dtype), bias,
-                 self.stride, self.padding, 1, self.groups)
+                 self.stride, self.padding if padding is None else padding, 1, self.groups)
         y = y.movedim(1, -1)
         return y.reshape(*lead, *y.shape[1:])
 
@@ -79,6 +80,24 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.Conv_0(x)
+
+    def on_halo(self, x: torch.Tensor) -> torch.Tensor:
+        """The 3-D convolution of a frame block already extended by its time
+        halo (`parallel/sharding.py::FrameShard.halo`): no padding in time,
+        so the output has the block's frames."""
+        conv = self.Conv_0
+        return conv(x, padding=(0, *conv.padding[1:]))
+
+    def time_sharded(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """The 3-D convolution of this rank's frames of a window whose frames
+        spread over the seq axis (`shard`, or None for the whole window): the
+        block extended by the time padding's worth of the neighbours' frames
+        (zero frames past the clip's ends, the layer's zero padding), then
+        convolved with no time padding. Each output frame sums the terms of
+        the unsharded convolution."""
+        if shard is None:
+            return self(x)
+        return self.on_halo(shard.halo(x, self.Conv_0.padding[0]))
 
 
 class Linear(nn.Module):

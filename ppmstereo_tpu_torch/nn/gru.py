@@ -8,7 +8,9 @@ with 5-tap kernels. The 2-D GRUs run over (B, H, W, C): RAFT's SepConvGRU
 (horizontal then vertical), ConvGRU (one 3x3 pass) and SKSepConvGRU.
 
 Each gate conv reads cat[h, x] (hidden_dim + input_dim channels); its name is
-the flax path's (`Conv_i` in creation order, `_SKConv_i`).
+the flax path's (`Conv_i` in creation order, `_SKConv_i`). SKSepConvGRU3D
+also runs on one rank's frames of a window spread over the seq axis: its
+time pass exchanges a halo of 2 frames before each (5, 1, 1) convolution.
 """
 
 from __future__ import annotations
@@ -25,6 +27,20 @@ def _gate(h, x, convz, convr, convq):
     z = torch.sigmoid(convz(hx))
     r = torch.sigmoid(convr(hx))
     q = torch.tanh(convq(torch.cat([r * h, x], dim=-1)))
+    return (1 - z) * h + z * q
+
+
+def _gate_time_sharded(h, x, convz, convr, convq, shard):
+    """`_gate` of a time pass on this rank's frames of a window spread over
+    the seq axis (`shard`): each convolution's input extended by its time
+    halo. The q-gate reads r * h, so its halo is exchanged after r (a halo
+    taken once at the top would hold the neighbours' h, not their r * h)."""
+    pad = convz.Conv_0.padding[0]
+    hx = shard.halo(torch.cat([h, x], dim=-1), pad)
+    z = torch.sigmoid(convz.on_halo(hx))
+    r = torch.sigmoid(convr.on_halo(hx))
+    rh = shard.halo(r * h, pad)
+    q = torch.tanh(convq.on_halo(torch.cat([rh, hx[..., h.shape[-1]:]], dim=-1)))
     return (1 - z) * h + z * q
 
 
@@ -114,7 +130,13 @@ class SKSepConvGRU3D(nn.Module):
         for i in range(4, 7):
             self.add_module(f"Conv_{i}", Conv(cin, d, (5, 1, 1), dtype=dtype))
 
-    def forward(self, h: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, h: torch.Tensor, x: torch.Tensor, shard=None) -> torch.Tensor:
+        """shard: this rank's block of a window's frames over the seq axis
+        (`parallel/sharding.py::FrameShard`), None for the whole window; the
+        time pass then exchanges its convolutions' halos."""
         h = _gate(h, x, self._SKConv_0, self._SKConv_1, self.Conv_0)   # width
         h = _gate(h, x, self.Conv_1, self.Conv_2, self.Conv_3)         # height
-        return _gate(h, x, self.Conv_4, self.Conv_5, self.Conv_6)      # time
+        time = (self.Conv_4, self.Conv_5, self.Conv_6)
+        if shard is None:
+            return _gate(h, x, *time)
+        return _gate_time_sharded(h, x, *time, shard)

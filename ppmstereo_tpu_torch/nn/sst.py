@@ -3,6 +3,11 @@
 a learned time embedding of `num_frames` frames (nearest-interpolated when
 the clip length differs) and `depth` rounds of LoFTR self-attention, stereo
 cross-attention and temporal attention over both views.
+
+On one rank's frames of a window spread over the seq axis (`shard`), the
+self and cross layers are per frame; the time embedding is the whole
+window's, sliced at the rank's frames, and the temporal blocks run on the
+gathered window (`nn/attention.py::TimeAttnBlock`).
 """
 
 from __future__ import annotations
@@ -52,14 +57,18 @@ class SSTBlock(nn.Module):
                 self.add_module(f"cross_attn_blocks_{i}",
                                 LocalFeatureTransformer(dim, 8, ("cross",), dtype))
 
-    def forward(self, f1: torch.Tensor, f2: torch.Tensor):
-        """f1/f2: (B, T, H, W, C) left/right 1/16 features."""
+    def forward(self, f1: torch.Tensor, f2: torch.Tensor, shard=None):
+        """f1/f2: (B, T, H, W, C) left/right 1/16 features; under a seq
+        `shard` (`parallel/sharding.py::FrameShard`) this rank's frames."""
         b, t, h, w, d = f1.shape
         pe = torch.from_numpy(position_encoding_sine(h, w, d)).to(f1.device, f1.dtype)
         f1 = f1 + pe
         f2 = f2 + pe
         if self.with_time_embed:
-            te = _interp_nearest_time(self.time_embed, t).to(f1.dtype)[:, :, None, None, :]
+            te = _interp_nearest_time(self.time_embed, t if shard is None else shard.total)
+            if shard is not None:
+                te = shard.local(te)
+            te = te.to(f1.dtype)[:, :, None, None, :]
             f1 = f1 + te
             f2 = f2 + te
         if not (self.with_stereo or self.with_temporal):
@@ -74,6 +83,6 @@ class SSTBlock(nn.Module):
                 f2 = t2.reshape(b, t, h, w, d)
             if self.with_temporal:
                 blk = getattr(self, f"time_attn_blocks_{i}")
-                f1 = blk(f1)
-                f2 = blk(f2)
+                f1 = blk(f1, shard)
+                f2 = blk(f2, shard)
         return f1, f2

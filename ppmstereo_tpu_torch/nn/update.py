@@ -2,7 +2,13 @@
 StereoAnyVideo and DynamicStereo (counterpart of
 ppmstereo_tpu/nn/update.py::FlowHead, Aggregate, SequenceUpdateBlock3D,
 SAVSequenceUpdateBlock3D, DSSequenceUpdateBlock3D). Tensors are
-(B, T, H, W, C)."""
+(B, T, H, W, C).
+
+FlowHead and PPMStereo's SequenceUpdateBlock3D also run on one rank's
+frames of a window spread over the seq axis (`shard`, a
+`parallel/sharding.py::FrameShard`): each 3x3x3 convolution exchanges a
+halo of one frame, and the 1/16 stage's time attention runs on the
+gathered window."""
 
 from __future__ import annotations
 
@@ -27,8 +33,8 @@ class FlowHead(nn.Module):
         self.Conv_0 = Conv(in_dim, 256, (3, 3, 3), dtype=dtype)
         self.Conv_1 = Conv(256, 2, (3, 3, 3), dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.Conv_1(F.relu(self.Conv_0(x)))
+    def forward(self, x: torch.Tensor, shard=None) -> torch.Tensor:
+        return self.Conv_1.time_sharded(F.relu(self.Conv_0.time_sharded(x, shard)), shard)
 
 
 class Aggregate(nn.Module):
@@ -91,24 +97,27 @@ class SequenceUpdateBlock3D(nn.Module):
     def get_uncertainty(self, net_and_value: torch.Tensor) -> torch.Tensor:
         return torch.sigmoid(self.unc_conv2(F.relu(self.unc_conv1(net_and_value))))
 
-    def get_mask(self, net: torch.Tensor) -> torch.Tensor:
-        return 0.25 * self.mask_conv2(F.relu(self.mask_conv1(net)))
+    def get_mask(self, net: torch.Tensor, shard=None) -> torch.Tensor:
+        conv = self.mask_conv1
+        y = conv.time_sharded(net, shard) if conv.Conv_0.nd == 3 else conv(net)
+        return 0.25 * self.mask_conv2(F.relu(y))
 
     def forward(self, net, inp, motion_features, motion_features_global,
-                compute_mask: bool = False):
+                compute_mask: bool = False, shard=None):
         """GRU update: returns (net, delta_flow), and with `compute_mask`
         (training, JAX's `compute_mask=collect_preds`) also the convex mask
         of the new state: (net, delta_flow, mask). Inference reads the mask
-        once after the loop (`get_mask`)."""
+        once after the loop (`get_mask`). shard: this rank's frames of a
+        window over the seq axis (None: the whole window)."""
         x = torch.cat([inp, motion_features, motion_features_global], dim=-1)
         if self.with_time_attn:
-            x = self.time_attn(x)
+            x = self.time_attn(x, shard)
         if self.with_space_attn:
             x = self.space_attn(x)
-        net = self.gru(net, x)
+        net = self.gru(net, x, shard)
         if compute_mask:
-            return net, self.flow_head(net), self.get_mask(net)
-        return net, self.flow_head(net)
+            return net, self.flow_head(net, shard), self.get_mask(net, shard)
+        return net, self.flow_head(net, shard)
 
 
 class SAVSequenceUpdateBlock3D(nn.Module):

@@ -3,7 +3,9 @@
 Counterpart of ppmstereo_tpu/ops/upsample.py: the 3-D variant of the
 shipped config and the 2-D one of `use_convex_3d=False`. Mask channels are
 laid out as [tap(27 or 9), ry, rx], taps row-major over the (dt, dy, dx)
-or (dy, dx) offsets in {-1, 0, 1}, zero padding.
+or (dy, dx) offsets in {-1, 0, 1}, zero padding. On one rank's frames of
+a window spread over the seq axis, the 3-D variant takes its time
+neighbours from a halo of one frame (`parallel/sharding.py::FrameShard`).
 """
 
 from __future__ import annotations
@@ -20,10 +22,14 @@ def _neighborhood_2d(x: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps, dim=-2)
 
 
-def _neighborhood_3d(x: torch.Tensor) -> torch.Tensor:
-    """Stack the 3x3x3 zero-padded neighbourhood: (B,T,H,W,C) -> (B,T,H,W,27,C)."""
+def _neighborhood_3d(x: torch.Tensor, shard=None) -> torch.Tensor:
+    """Stack the 3x3x3 zero-padded neighbourhood: (B,T,H,W,C) -> (B,T,H,W,27,C);
+    under a seq `shard` the time neighbours come from the halo."""
     t, h, w = x.shape[-4], x.shape[-3], x.shape[-2]
-    xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    if shard is None:
+        xp = F.pad(x, (0, 0, 1, 1, 1, 1, 1, 1))
+    else:
+        xp = F.pad(shard.halo(x, 1), (0, 0, 1, 1, 1, 1))
     taps = [
         xp[:, dt : dt + t, dy : dy + h, dx : dx + w, :]
         for dt in range(3)
@@ -42,14 +48,16 @@ def _pixel_shuffle(up: torch.Tensor, rate: int) -> torch.Tensor:
     return up.reshape(*lead, h * rate, w * rate, c)
 
 
-def convex_upsample_3d(flow: torch.Tensor, mask: torch.Tensor, rate: int = 4) -> torch.Tensor:
+def convex_upsample_3d(flow: torch.Tensor, mask: torch.Tensor, rate: int = 4,
+                       shard=None) -> torch.Tensor:
     """flow (B,T,H,W,2), mask (B,T,H,W,27*r*r) -> (B,T,H*r,W*r,2), in f32.
 
     Per output subpixel, a softmax-convex combination of the 3x3x3
-    neighbourhood of rate * flow; only H and W are upsampled."""
+    neighbourhood of rate * flow; only H and W are upsampled. shard: this
+    rank's frames of a window over the seq axis (None: the whole window)."""
     b, t, h, w, _ = flow.shape
     weights = torch.softmax(mask.reshape(b, t, h, w, 27, rate * rate).float(), dim=-2)
-    nb = _neighborhood_3d(rate * flow.float())  # (B,T,H,W,27,2)
+    nb = _neighborhood_3d(rate * flow.float(), shard)  # (B,T,H,W,27,2)
     up = torch.einsum("bthwkr,bthwkc->bthwrc", weights, nb)
     return _pixel_shuffle(up, rate)
 

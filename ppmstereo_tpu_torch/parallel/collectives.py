@@ -8,6 +8,12 @@ group moves the device buffers directly.
 `all_reduce_sum` has a backward: the cotangent summed over the group, the
 adjoint of a sum over ranks whose losses are added up (the data axis's
 batch mean in `models/ppm_stereo.py`).
+
+The `seq` axis's two messages (`parallel/sharding.py::FrameShard`):
+`gather_frames`, the blocks of a window's frames of every rank joined along
+dim 1, and `time_halo`, a block extended by its neighbours' edge frames.
+Both move the tensors' bytes as they are, so any dtype (bf16 included)
+passes through gloo.
 """
 
 from __future__ import annotations
@@ -92,3 +98,61 @@ def broadcast_tensors_(tensors, group) -> None:
             for t in same:
                 t.copy_(flat[start: start + t.numel()].view_as(t))
                 start += t.numel()
+
+
+def _bytes(x: torch.Tensor) -> torch.Tensor:
+    """x's bytes, flat (uint8): a message that gloo moves for any dtype."""
+    return x.contiguous().reshape(-1).view(torch.uint8)
+
+
+def _from_bytes(raw: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """`_bytes`' inverse: raw as a tensor of like's shape and dtype."""
+    return raw.view(like.dtype).reshape(like.shape)
+
+
+def gather_frames(x: torch.Tensor, group) -> torch.Tensor:
+    """The frame blocks x (B, n, ...) of every rank of `group`, joined along
+    the frame axis (dim 1) in rank order: (B, S n, ...) on every rank."""
+    device = x.device
+    src = _bytes(x)
+    if host_staged(group, device):
+        src = _to_host(src)
+    parts = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat([_from_bytes(p.to(device), x) for p in parts], dim=1)
+
+
+def time_halo(x: torch.Tensor, h: int, group) -> torch.Tensor:
+    """This rank's frame block x (B, n, ...) extended by h frames on each
+    side: the previous rank's last h and the next rank's first h frames
+    (rank order of `group`), zero frames past the clip's ends (the zero
+    padding of a convolution over time): (B, n + 2h, ...).
+
+    One message to each neighbour (`batch_isend_irecv`). A block thinner
+    than the halo (n < h) takes its halo from the gathered window instead."""
+    n = x.shape[1]
+    me, size = dist.get_rank(group), dist.get_world_size(group)
+    if n < h:
+        whole = gather_frames(x, group)
+        pad = x.new_zeros(x.shape[0], h, *x.shape[2:])
+        whole = torch.cat([pad, whole, pad], dim=1)
+        return whole[:, me * n: me * n + n + 2 * h]
+    device = x.device
+    staged = host_staged(group, device)
+    edge = x[:, :h]
+    ops, recv = [], {}
+    for peer, send in ((me - 1, edge), (me + 1, x[:, n - h:])):
+        if not 0 <= peer < size:
+            continue
+        raw = _bytes(send)
+        raw = _to_host(raw) if staged else raw
+        recv[peer] = torch.empty(raw.shape, dtype=raw.dtype, device=raw.device,
+                                 pin_memory=staged)
+        peer_rank = dist.get_global_rank(group, peer)
+        ops += [dist.P2POp(dist.isend, raw, peer_rank, group),
+                dist.P2POp(dist.irecv, recv[peer], peer_rank, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    before, after = (_from_bytes(recv[p].to(device), edge) if p in recv
+                     else torch.zeros_like(edge) for p in (me - 1, me + 1))
+    return torch.cat([before, x, after], dim=1)

@@ -12,7 +12,11 @@ are consecutive ranks.
          block of the global batch (`parallel/sharding.py`); the train
          step sums the gradients over it, and PPMStereo's batch mean of
          the picked frames' scores is taken over it (`batch_group`)
-  seq    the frame axis of a window (not ported: PPMStereo refuses it)
+  seq    the frames of a window (inference): each rank holds its block of
+         frames [s T/S, (s+1) T/S) (`parallel/sharding.py::FrameShard`, its
+         offset and count); PPMStereo exchanges time halos and gathers
+         what mixes frames over it, and a window whose T is not divisible
+         by S runs whole on every rank of the axis
   space  the rows of a window: the ring play attention shards each play
          step's query rows and picked memory over it
 

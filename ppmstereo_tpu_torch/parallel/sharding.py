@@ -1,5 +1,6 @@
-"""How a global batch maps onto the `data` axis (counterpart of
-ppmstereo_tpu/parallel/sharding.py).
+"""How a global batch maps onto the `data` axis, and a window's frames onto
+the `seq` axis (counterpart of ppmstereo_tpu/parallel/sharding.py and of
+the window sharding of ppmstereo_tpu/parallel/streaming.py).
 
 The JAX package lays a training batch out as P("data", "seq", "space"):
 clips over `data`, in device order. Here each rank holds its contiguous
@@ -7,11 +8,28 @@ block of clips of the global batch, in rank order: rank r of n holds clips
 [r B/n, (r+1) B/n). The port shards nothing over `seq` or `space` in
 training. A batch that the axis does not divide raises, as the JAX
 sharding does.
+
+In inference a window's T frames spread over the `seq` axis of S ranks:
+rank s holds frames [s T/S, (s+1) T/S) (`FrameShard`). A window whose T
+is not divisible by S runs replicated on every rank of the axis, the JAX
+predictor's rule for tail windows (`frame_shard`).
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
+from dataclasses import dataclass
+
+import torch.distributed as dist
+
+from ppmstereo_tpu_torch.parallel import collectives
+
+# bytes this process received over the seq axis since the counts were last
+# set to 0: the play's memory bank ("bank": its keys once a stage, its
+# values every iteration), the convolutions' time halos ("halo") and every
+# other frame gather ("frames": pooled descriptors, frame confidences, the
+# 1/16 time attention's input and the outputs)
+RECEIVED = {"bank": 0, "halo": 0, "frames": 0}
 
 
 def local_slice(batch_size: int, rank: int, size: int) -> slice:
@@ -30,3 +48,61 @@ def local_batch(batch: Mapping, rank: int, size: int) -> dict:
         raise ValueError(f"batch entries of {sorted(lengths)} clips")
     mine = local_slice(lengths.pop(), rank, size)
     return {k: v[mine] for k, v in batch.items()}
+
+
+@dataclass(frozen=True)
+class FrameShard:
+    """This rank's block of a window of `total` frames over the seq axis
+    (`group`, `size` ranks; this rank's position `index`), and the messages
+    that join the blocks. Tensors are (B, T, ...): frames on dim 1."""
+
+    group: object
+    index: int
+    size: int
+    total: int
+
+    @property
+    def count(self) -> int:
+        """The frames of each rank's block."""
+        return self.total // self.size
+
+    @property
+    def offset(self) -> int:
+        """The window's index of this rank's first frame."""
+        return self.index * self.count
+
+    def local(self, x):
+        """This rank's frames of a whole window's x."""
+        return x[:, self.offset: self.offset + self.count]
+
+    def gather(self, x, kind: str = "frames"):
+        """Every rank's block of x joined in frame order (the whole window)."""
+        out = collectives.gather_frames(x, self.group)
+        RECEIVED[kind] += x.numel() * x.element_size() * (self.size - 1)
+        return out
+
+    def gather_bank(self, x):
+        """The play's memory bank (keys or values) of the whole window."""
+        return self.gather(x, "bank")
+
+    def halo(self, x, h: int):
+        """x extended by h frames on each side from the neighbouring ranks'
+        blocks (zero frames past the clip's ends): (B, count + 2h, ...)."""
+        frame = x[:, :1].numel() * x.element_size()
+        if self.count < h:
+            RECEIVED["halo"] += frame * self.count * (self.size - 1)
+        else:
+            RECEIVED["halo"] += frame * h * ((self.index > 0) + (self.index < self.size - 1))
+        return collectives.time_halo(x, h, self.group)
+
+
+def frame_shard(t: int, group) -> FrameShard | None:
+    """This rank's share of a window of t frames over the seq `group`; None
+    (the window runs whole on every rank) without a group or when t is not
+    divisible by the axis's size."""
+    if group is None:
+        return None
+    size = dist.get_world_size(group)
+    if t % size:
+        return None
+    return FrameShard(group, dist.get_rank(group), size, t)

@@ -12,7 +12,11 @@ batch statistic such as PPMStereo's batch mean of the picked scores, as
 under XLA's sharding; they also keep every rank issuing the same
 collectives, since a rank with no window would leave its group waiting.
 
-Every rank of the mesh calls the predictor on the same video.
+Every rank of the mesh calls the predictor on the same video. Under
+data x seq the window function is a model on the mesh: each data rank's
+block of windows spreads its frames over that rank's seq group (the JAX
+package's P("data", "seq", "space"), with its rule: a window whose length
+the seq axis does not divide runs whole on every rank of the axis).
 """
 
 from __future__ import annotations

@@ -4,8 +4,10 @@ RAFT flows given and computed by its frozen RAFT, and
 `model_zoo("BiDAStereoModel")` against the JAX zoo, in f32 (BiDAStereo's
 shipped precision).
 
-Weights: the JAX modules' `jax.jit(init)` parameters carried across with
-`utils/weights.py`, the RAFT's FrozenBatchNorms given drawn statistics.
+Weights: the update cell's JAX `jax.jit(init)` parameters carried across
+with `utils/weights.py`; the whole model's the port's initialisation, its
+variables checked against the JAX model's (`checked_port_init`); the RAFT's
+FrozenBatchNorms given drawn statistics.
 Inputs: seeded numpy arrays and the JAX package's synthetic clips.
 
 Tolerance: 1e-4 px on the disparity (tests/torch_zoo_parity.DISP_TOL;
@@ -32,6 +34,7 @@ from tests.test_torch_raft import draw_batch_norms
 from tests.torch_zoo_parity import (
     DISP_TOL,
     carried,
+    checked_port_init,
     jax_apply,
     jax_init,
     max_diff,
@@ -47,11 +50,14 @@ CFG = dict(raft_iters=2)
 
 @pytest.fixture(scope="module")
 def bida():
-    """The JAX BiDAStereo's parameters (its RAFT's batch norms drawn) and a
-    (1, 2, 64, 128) clip."""
+    """BiDAStereo's parameters (the port's initialisation, its variables
+    checked against the JAX model's: tests/torch_zoo_parity.py::
+    checked_port_init; its RAFT's batch norms drawn) and a (1, 2, 64, 128)
+    clip."""
     left, right, _ = stereo_clip(2, 64, 128, seed=3)
-    tree = jax_init(jbida.BiDAStereo(cfg=jbida.BiDAStereoConfig(**CFG), iters=2, test_mode=True),
-                    left, right)
+    tree = checked_port_init(
+        jbida.BiDAStereo(cfg=jbida.BiDAStereoConfig(**CFG), iters=2, test_mode=True),
+        tbida.BiDAStereo(tbida.BiDAStereoConfig(**CFG), 2, test_mode=True), left, right)
     return draw_batch_norms(tree, seed=2), left, right
 
 

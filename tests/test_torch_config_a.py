@@ -1,7 +1,9 @@
 """Configuration A, the JAX package's multi-device configuration
 (`use_cnet=False, attention_type=None, top_k=T`), through the port's
-PPMStereo and the JAX package's, with the JAX parameters carried across
-(tests/torch_config_parity.py), in test mode and train mode.
+PPMStereo and the JAX package's, with the port's initialisation carried
+across and its parameter set checked against the JAX model's
+(tests/torch_config_parity.py::checked_port_params), in test mode and
+train mode.
 
 Without the context net the GRU state and context come from fnet's features
 alone, and the input needs a height of a multiple of 16 only (the SST's
@@ -29,7 +31,7 @@ KWARGS = dict(cp.CONFIG_A, top_k=T)
 @pytest.fixture(scope="module")
 def setup():
     left, right = cp.clip(T, H, W, seed=3)
-    return left, right, cp.jax_params(KWARGS, left, right, ITERS)
+    return left, right, cp.checked_port_params(KWARGS, left, right, ITERS)
 
 
 def test_config_a_has_no_context_net_and_no_attention(setup):

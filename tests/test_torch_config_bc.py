@@ -1,7 +1,9 @@
 """Configurations B (`use_convex_3d=False, corr_levels=3, corr_radius=3,
 sst_depth=2`) and C (`hidden_dim=64, dim=192`) in test mode through the
-port's PPMStereo and the JAX package's, with the JAX parameters carried
-across (tests/torch_config_parity.py); 4 frames at 64 x 96, in f32.
+port's PPMStereo and the JAX package's, with the port's initialisation
+carried across and its parameter set checked against the JAX model's
+(tests/torch_config_parity.py::checked_port_params); 4 frames at 64 x 96,
+in f32.
 
 B takes the 2-D convex upsample (9 taps x 16), a 3-level radius-3 lookup
 (21 correlation channels) and two SST rounds; C a 64-channel GRU state with
@@ -43,7 +45,7 @@ FAULTS = {
 @pytest.mark.parametrize("name,kwargs", [("B", cp.CONFIG_B), ("C", cp.CONFIG_C)])
 def test_config_matches_jax(name, kwargs, monkeypatch):
     left, right = cp.clip(T, H, W, seed=5)
-    tree = cp.jax_params(kwargs, left, right, ITERS)
+    tree = cp.checked_port_params(kwargs, left, right, ITERS)
     jd, ju = cp.run_jax(kwargs, tree, left, right, ITERS, test_mode=True)
     model = cp.port_model(kwargs, tree, T, ITERS, test_mode=True)
     td, tu = cp.run_port(model, left, right)

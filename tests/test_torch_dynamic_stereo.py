@@ -2,10 +2,12 @@
 encoder and update cell, the whole model in test and train mode, and
 `model_zoo("DynamicStereoModel")` over a clip, in f32.
 
-Weights: the JAX modules' `jax.jit(init)` parameters carried across with
-`utils/weights.py`, the time embedding and the temporal attention's output
-projection drawn (tests/torch_zoo_parity.py). Inputs: seeded numpy arrays
-and the JAX package's synthetic clips.
+Weights: the blocks' JAX `jax.jit(init)` parameters carried across with
+`utils/weights.py`; the whole model's the port's initialisation, its
+variables checked against the JAX model's (`checked_port_init`); the time
+embedding and the temporal attention's output projection drawn
+(tests/torch_zoo_parity.py). Inputs: seeded numpy arrays and the JAX
+package's synthetic clips.
 
 Tolerance: DISP_TOL = 1e-4 px on the disparity, as tests/test_torch_model.py
 (measured on the CPU: 2.3e-6 px in test mode, 2.7e-6 in train mode, 2.6e-6
@@ -34,6 +36,7 @@ from ppmstereo_tpu_torch.utils.weights import flatten_params, state_dict_to_flax
 from tests.torch_zoo_parity import (
     DISP_TOL,
     carried,
+    checked_port_init,
     draw_zero_leaves,
     jax_apply,
     jax_init,
@@ -49,10 +52,14 @@ ATTENTION = tds.DS_ATTENTION
 
 @pytest.fixture(scope="module")
 def ds():
-    """The JAX DynamicStereo's parameters and a (1, 3, 64, 128) clip."""
+    """DynamicStereo's parameters (the port's initialisation, its variables
+    checked against the JAX model's: tests/torch_zoo_parity.py::
+    checked_port_init) and a (1, 3, 64, 128) clip."""
     left, right, _ = stereo_clip(3, 64, 128)
-    tree = jax_init(JDynamicStereo(cfg=JConfig(mixed_precision=False), iters=2, test_mode=True),
-                    left, right)
+    tree = checked_port_init(
+        JDynamicStereo(cfg=JConfig(mixed_precision=False), iters=2, test_mode=True),
+        tds.DynamicStereo(tds.DynamicStereoConfig(mixed_precision=False), 2, test_mode=True),
+        left, right)
     return draw_zero_leaves(tree), left, right
 
 

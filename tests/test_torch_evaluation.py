@@ -29,6 +29,7 @@ from ppmstereo_tpu_torch.evaluation import evaluator as tev
 from ppmstereo_tpu_torch.evaluation import metrics as tmet
 from ppmstereo_tpu_torch.evaluation import visualization as tvis
 from ppmstereo_tpu_torch.models.zoo import model_zoo
+from ppmstereo_tpu_torch.parallel.mesh import MeshSpec
 from ppmstereo_tpu_torch.utils.weights import load_npz
 
 torch.set_num_threads(2)
@@ -321,8 +322,13 @@ def test_cli_refusals(tmp_path):
     with pytest.raises(FileNotFoundError, match="no frames"):
         tdemo.main(["--device", "cpu", "--left", str(tmp_path), "--right", str(tmp_path),
                     "--iters", "1", "--model_kwargs", "mixed_precision=False"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1"):
+    # a seq axis is accepted (tests/test_torch_seq_inference.py runs it); like
+    # any mesh it needs a process group of its size
+    assert tcli.parse_mesh("1x2x2") == MeshSpec(data=1, seq=2, space=2)
+    with pytest.raises(RuntimeError, match="needs an initialised torch.distributed"):
         tcli.main(["--device", "cpu", "MODEL.mesh=1x2x1"])
+    with pytest.raises(ValueError, match="want DxSxP"):
+        tcli.main(["--device", "cpu", "MODEL.mesh=1x2"])
     with pytest.raises(RuntimeError, match="needs an initialised torch.distributed"):
         tcli.main(["--device", "cpu", "MODEL.mesh=1x1x2"])  # one process, no group
     with pytest.raises(ValueError, match="unknown model 'NoSuchStereoModel'"):

@@ -3,7 +3,9 @@ package's, and against a torch RAFT with the reference's state-dict layout
 (tests/raft_torch_stub.py) brought in through the port's `raft_mapping`.
 
 Weights: the JAX modules' `jax.jit(init)` parameters carried across with
-`utils/weights.py`, every FrozenBatchNorm given drawn statistics, scale and
+`utils/weights.py` (for the whole RAFT the port's initialisation, its
+variables checked against the JAX model's: tests/torch_zoo_parity.py::
+checked_port_init), every FrozenBatchNorm given drawn statistics, scale and
 bias (at init they are the identity); for the stub, its own initialisation
 with drawn running statistics, imported by the port's table with every live
 tensor consumed. Inputs: seeded numpy images in [0, 255].
@@ -28,7 +30,15 @@ from ppmstereo_tpu_torch.utils.torch_import import import_by_mapping
 from ppmstereo_tpu_torch.utils.weights import load_flax_params, state_dict_to_flax
 from ppmstereo_tpu_torch.utils.zoo_mappings import is_zoo_dead_key, raft_mapping
 from tests.raft_torch_stub import RAFT as TorchRAFT
-from tests.torch_zoo_parity import DISP_TOL, carried, jax_apply, jax_init, max_diff, port_apply
+from tests.torch_zoo_parity import (
+    DISP_TOL,
+    carried,
+    checked_port_init,
+    jax_apply,
+    jax_init,
+    max_diff,
+    port_apply,
+)
 
 torch.set_num_threads(1)
 BLOCK_TOL = 1e-4
@@ -60,9 +70,12 @@ def _images(h: int, w: int, seed: int):
 
 @pytest.fixture(scope="module")
 def raft():
-    """The JAX RAFT's parameters (drawn batch norms) and a 64x96 pair."""
+    """RAFT's parameters (the port's initialisation, its variables checked
+    against the JAX model's: tests/torch_zoo_parity.py::checked_port_init;
+    drawn batch norms) and a 64x96 pair."""
     i1, i2 = _images(64, 96, seed=0)
-    tree = draw_batch_norms(jax_init(jraft.RAFT(cfg=jraft.RAFTConfig(), iters=3), i1, i2))
+    tree = draw_batch_norms(checked_port_init(jraft.RAFT(cfg=jraft.RAFTConfig(), iters=3),
+                                              traft.RAFT(traft.RAFTConfig(), 3), i1, i2))
     return tree, i1, i2
 
 

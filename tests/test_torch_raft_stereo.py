@@ -4,8 +4,10 @@ raftstereo_torch_stub.py) brought in through the port's
 `raftstereo_mapping`, and `model_zoo("RAFTStereoModel")` against the JAX
 zoo, in f32 (RAFT-Stereo's shipped precision).
 
-Weights: the JAX model's `jax.jit(init)` parameters carried across with
-`utils/weights.py`, every FrozenBatchNorm given drawn statistics, scale and
+Weights: the port's initialisation carried across with `utils/weights.py`,
+its variables checked against the JAX model's (`jax.eval_shape` of its
+init: tests/torch_zoo_parity.py::checked_port_init), every FrozenBatchNorm
+given drawn statistics, scale and
 bias; for the stub, its own initialisation with drawn running statistics,
 imported by the port's table with every live tensor consumed. Inputs:
 seeded numpy images and the JAX package's synthetic clips.
@@ -36,8 +38,8 @@ from tests.test_torch_raft import draw_batch_norms
 from tests.torch_zoo_parity import (
     DISP_TOL,
     carried,
+    checked_port_init,
     jax_apply,
-    jax_init,
     max_diff,
     port_apply,
     stereo_clip,
@@ -55,11 +57,14 @@ def _shift_lookup(monkeypatch):
 
 @pytest.fixture(scope="module")
 def rs():
-    """The JAX RAFT-Stereo's parameters (drawn batch norms) and a 64x128
-    pair."""
+    """RAFT-Stereo's parameters (the port's initialisation, its variables
+    checked against the JAX model's: tests/torch_zoo_parity.py::
+    checked_port_init; drawn batch norms) and a 64x128 pair."""
     left, right, _ = stereo_clip(2, 64, 128, seed=2)
     i1, i2 = left[0, :1], right[0, :1]
-    tree = draw_batch_norms(jax_init(JRAFTStereo(cfg=JConfig(), iters=4), i1, i2), seed=1)
+    tree = draw_batch_norms(checked_port_init(JRAFTStereo(cfg=JConfig(), iters=4),
+                                              trs.RAFTStereo(trs.RAFTStereoConfig(), 4), i1, i2),
+                            seed=1)
     return tree, i1, i2
 
 

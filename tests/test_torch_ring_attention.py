@@ -35,6 +35,7 @@ from ppmstereo_tpu.parallel import mesh as jmesh
 from ppmstereo_tpu.parallel.ring_attention import ring_play_attention as jring
 from ppmstereo_tpu_torch.kernels import play_attention as tpa
 from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
+from ppmstereo_tpu_torch.models.zoo import model_zoo
 from ppmstereo_tpu_torch.parallel.launch import run_group
 from ppmstereo_tpu_torch.parallel.mesh import Mesh, MeshSpec
 from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
@@ -171,14 +172,23 @@ def test_mesh_layout_and_size_check():
 
 def test_space_mesh_is_for_inference_and_other_axes_wait():
     """No process group is needed to refuse a mesh. The data axis is live
-    (tests/test_torch_data_*.py): its batch-mean group reaches every stage;
-    the seq axis waits."""
+    (tests/test_torch_data_*.py): its batch-mean group reaches every stage.
+    The seq axis is live in inference (tests/test_torch_seq_inference.py);
+    in training it waits for ROADMAP §1 item 7.3, and for PPMStereo-VDA and
+    the rest of the zoo for item 7.1b."""
     coords = {"data": 0, "seq": 0, "space": 0}
     space = Mesh(MeshSpec(space=2), coords, {"data": None, "seq": None, "space": object()})
     with pytest.raises(ValueError, match="inference only"):
         PPMStereo(iters=2, test_mode=False, mesh=space)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1"):
-        PPMStereo(iters=2, test_mode=True, mesh=Mesh(MeshSpec(seq=2), coords, {}))
+    seq_group = object()
+    seq = Mesh(MeshSpec(seq=2), coords, {"data": None, "seq": seq_group, "space": None})
+    assert PPMStereo(iters=2, test_mode=True, mesh=seq).seq_group is seq_group
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.3"):
+        PPMStereo(iters=2, test_mode=False, mesh=seq)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1b"):
+        PPMStereo(PPMStereoConfig(use_vfm=True), iters=2, test_mode=True, mesh=seq)
+    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1b"):
+        model_zoo("DynamicStereoModel", iters=1, device="cpu", mesh=seq)
     group = object()
     data = Mesh(MeshSpec(data=2), coords, {"data": object(), "seq": None, "space": None}, group)
     for test_mode in (True, False):

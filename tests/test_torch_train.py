@@ -43,7 +43,7 @@ from ppmstereo_tpu_torch.train import state as tstate
 from ppmstereo_tpu_torch.train import trainer as ttrainer
 from ppmstereo_tpu_torch.utils import init as tinit
 from ppmstereo_tpu_torch.utils import weights as tweights
-from tests.torch_train_parity import tiny_cli_run
+from tests.torch_train_parity import FAST_COMPILE, tiny_cli_run
 
 torch.set_num_threads(2)
 ANCHOR = Path(__file__).resolve().parent.parent / "checkpoints" / "anchor_r5.npz"
@@ -243,7 +243,7 @@ def test_train_step_matches_jax_value_and_grad(anchor, monkeypatch):
         return jsequence_loss(preds, jnp.asarray(batch["disparity"]), jnp.asarray(batch["valid"]),
                               uncertainties=uncs)[0]
 
-    jl, jg = jax.jit(jax.value_and_grad(loss_fn))(tree)
+    jl, jg = jax.jit(jax.value_and_grad(loss_fn), compiler_options=FAST_COMPILE)(tree)
     jg = tweights.flatten_params(jax.tree_util.tree_map(np.asarray, jg))
 
     tl, tg = _port_loss_and_grads(flat, batch)

@@ -3,12 +3,13 @@ tests/test_torch_config_*.py: one configuration through the JAX package's
 `PPMStereo` and the port's, with the JAX package's parameters carried
 across, on one seeded synthetic clip, in f32.
 
-The parameters are the JAX package's initialisation of that configuration
-(`jax_params`: `jax.jit(init)`; the port loads them strictly, so its
-parameter set is the JAX model's) or the port's (`port_params`), with every
-play blend `beta` set to 1 and the SST time embedding drawn from a normal
-of std 0.5: at initialisation both are zero, and the play step and the
-time embedding would not reach the output.
+The parameters are the port's initialisation (`port_params`; with
+`checked_port_params` its parameter set checked, name by name and shape by
+shape, against the JAX model's, which `jax.eval_shape` of the JAX init
+gives without compiling the model), with every play blend `beta` set to 1
+and the SST time embedding drawn from a normal of std 0.5: at
+initialisation both are zero, and the play step and the time embedding
+would not reach the output.
 """
 
 import jax
@@ -21,7 +22,7 @@ from ppmstereo_tpu.models.ppm_stereo import PPMStereoConfig as JConfig
 from ppmstereo_tpu_torch.models import ppm_stereo as tppm
 from ppmstereo_tpu_torch.utils.weights import flatten_params, load_flax_params
 from tests.torch_parity_data import synthetic_clip
-from tests.torch_zoo_parity import port_init_tree
+from tests.torch_zoo_parity import port_init_tree, variable_shapes
 
 # tests/test_torch_model.py's limits (its docstring gives the measurements
 # they rest on): the play step rounds q/k/v to bf16 in both packages, so an
@@ -46,23 +47,27 @@ def clip(frames: int, h: int, w: int, seed: int = 0):
     return video[None, :, 0], video[None, :, 1]
 
 
-def jax_params(cfg_kwargs: dict, left, right, iters: int, seed: int = 0) -> dict:
-    """The JAX package's parameters of the configuration, with every `beta`
-    1 and the time embedding drawn (see the module docstring); a nested
-    {"params": ...} tree of numpy arrays."""
+def checked_port_params(cfg_kwargs: dict, left, right, iters: int, seed: int = 0) -> dict:
+    """`port_params` of the configuration, whose parameter set must be the
+    JAX model's (the names and shapes of `jax.eval_shape` of its init: a
+    trace, where a `jax.jit(init)` would also compile the forward, 15-60 s
+    on a CPU, for values that the parity does not depend on)."""
     jm = JPPMStereo(cfg=JConfig(mixed_precision=False, force_xla_attention=True,
                                 num_frames=left.shape[1], **cfg_kwargs),
                     iters=iters, test_mode=True)
-    tree = jax.tree_util.tree_map(np.asarray, jax.jit(jm.init)(
-        jax.random.PRNGKey(seed), jnp.asarray(left), jnp.asarray(right)))
-    return reach_the_output(jax.tree_util.tree_map(np.array, tree), seed)  # writable copies
+    want = variable_shapes(jax.eval_shape(jm.init, jax.random.PRNGKey(seed), jnp.asarray(left),
+                                          jnp.asarray(right)))
+    tree = port_params(cfg_kwargs, left.shape[1], iters, seed)
+    got = variable_shapes(tree)
+    assert got == want, (sorted(set(got) ^ set(want)),
+                         {k: (got[k], want[k]) for k in set(got) & set(want) if got[k] != want[k]})
+    return tree
 
 
 def port_params(cfg_kwargs: dict, frames: int, iters: int, seed: int = 0) -> dict:
     """The port's initialisation of the configuration
     (tests/torch_zoo_parity.py::port_init_tree), with every `beta` 1 and
-    the time embedding drawn: the tree of `jax_params` but for the
-    initialiser's draws."""
+    the time embedding drawn."""
     model = tppm.PPMStereo(tppm.PPMStereoConfig(mixed_precision=False, num_frames=frames,
                                                 **cfg_kwargs), iters=iters, test_mode=True)
     return reach_the_output(port_init_tree(model, seed), seed)

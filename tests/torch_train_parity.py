@@ -74,6 +74,8 @@ VFM_ENCODER_GRAD_TOL = 5e-2  # PPMStereo-VDA's MultiLevelEncoderVFM
 ENCODERS = ("params/fnet/", "params/cnet/")
 SIGNIFICANT_GRAD = 1e-4
 UPDATE_SHARE = 1e-2
+# XLA's CPU compile with LLVM's expensive passes off: the same function
+FAST_COMPILE = {"xla_llvm_disable_expensive_passes": True}
 NUM_STEPS, LR = 1000, 3e-4
 LR0 = onecycle_lr(0, NUM_STEPS, LR)  # the first update's rate, LR / 25
 
@@ -110,7 +112,9 @@ def jax_step(jcfg, tree: dict, b: dict):
         preds, uncs = step_model.apply(params, j["left"], j["right"])
         return jsequence_loss(preds, j["disparity"], j["valid"], uncertainties=uncs)[0]
 
-    loss, grads = jax.jit(jax.value_and_grad(loss_fn))(tree)
+    # LLVM's expensive passes off: the same function, compiled faster (as
+    # tests/test_torch_data_train.py compiles its step)
+    loss, grads = jax.jit(jax.value_and_grad(loss_fn), compiler_options=FAST_COMPILE)(tree)
     state = create_train_state(step_model, tree, num_steps=NUM_STEPS, lr=LR)
     state = state.apply_gradients(grads=grads)
     host = lambda t: flatten_params(jax.tree_util.tree_map(np.asarray, t))  # noqa: E731

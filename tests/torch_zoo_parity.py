@@ -12,6 +12,8 @@ the output, so `draw_zero_leaves` draws them from a normal of std 0.1
 before the comparison.
 """
 
+from collections.abc import Mapping
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -52,6 +54,31 @@ def port_init_tree(module: torch.nn.Module, seed: int = 0) -> dict:
         for p in parents:
             node = node.setdefault(p, {})
         node[leaf] = v
+    return tree
+
+
+def variable_shapes(tree: Mapping, prefix: str = "") -> dict:
+    """A nested variable tree -> {"params/a/b/leaf": shape}."""
+    out = {}
+    for key, val in tree.items():
+        path = f"{prefix}/{key}" if prefix else str(key)
+        out.update(variable_shapes(val, path) if isinstance(val, Mapping)
+                   else {path: tuple(val.shape)})
+    return out
+
+
+def checked_port_init(jax_module, port_module: torch.nn.Module, *inputs, seed: int = 0) -> dict:
+    """`port_init_tree(port_module, seed)`, whose variables (every
+    collection, name by name and shape by shape) must be the JAX module's:
+    `jax.eval_shape` of its init traces it without compiling it (~5 s on a
+    CPU for a whole model, where a `jax.jit(init)` compiles the forward
+    once more)."""
+    want = variable_shapes(jax.eval_shape(jax_module.init, jax.random.PRNGKey(seed),
+                                          *[jnp.asarray(x) for x in inputs]))
+    tree = port_init_tree(port_module, seed)
+    got = variable_shapes(tree)
+    assert got == want, (sorted(set(got) ^ set(want)),
+                         {k: (got[k], want[k]) for k in set(got) & set(want) if got[k] != want[k]})
     return tree
 
 
