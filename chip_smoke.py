@@ -46,6 +46,19 @@ it stopped):
                disparity must equal the kernel's bit for bit
   7. profile   one more 10-frame window under torch.profiler: device time
                by layer, kernel 6's launches and the device's busy share
+  7'. aux      the modules no model calls, at the shipped model's widths at
+               320x512 (FlowHead3DFFT, SKMotionEncoder, ResNetFPN,
+               MultiLevelResNetFPN, LocalFeatureTransformer with full
+               attention, Mlp, RelPosEmb), each with seeded weights carried
+               through utils/weights.py: f32 on the card against the CPU
+               (TF32 off; the LoFTR layers' linear attention on the same
+               weights must fail the limit), bf16 timed; one steady window
+               of the main path timed with utils/profiling.py's `timed` and
+               traced with its `trace` (20 launches each of kernels 1 and 6
+               required in the written Chrome trace); the roofline of its
+               analytic counts beside kernel 1's time and the window's device
+               time; a 720x1280 PFM and FLO read by the native readers
+               (data/native.py, built with g++) and by numpy: equal, host ms
   7a. modes    the main path's clip through `model_zoo` in each window mode
                (strict, batch_windows=2, encoder_cache, fast_mode,
                warm_start with warm_iters 10, warm_start with the encoder
@@ -2336,6 +2349,232 @@ def profile_window(run, video, label: str, smi: str, warm: bool = True, ranges: 
                 launches=sum(e.count for e in kernels), lookup_launches=lookups)
 
 
+# ---------------------------------------------------------------- aux
+# the modules that no model calls, at the widths of the shipped model at
+# 320x512, window 10 (the 1/4 grid 80 x 128, the 1/16 tokens 20 x 640):
+# (name, build(dtype), input shapes, the leading items the CPU reference
+# runs on (None: all; the encoders are per image, so two images show the
+# same function))
+AUX_SEED = 17
+AUX_MODULES = (
+    ("FlowHead3DFFT", lambda dt: _nn("fft_head").FlowHead3DFFT(128, 256, dt),
+     ((1, WINDOW, 80, 128, 128),), None),
+    ("SKMotionEncoder", lambda dt: _nn("motion").SKMotionEncoder(36, (1, 15), dt),
+     ((1, WINDOW, 80, 128, 2), (1, WINDOW, 80, 128, 36)), None),
+    ("ResNetFPN", lambda dt: _nn("encoder").ResNetFPN(256, "instance", dt),
+     ((2 * WINDOW, HEIGHT, WIDTH, 3),), 2),
+    ("MultiLevelResNetFPN", lambda dt: _nn("encoder").MultiLevelResNetFPN(256, "instance", dt),
+     ((2 * WINDOW, HEIGHT, WIDTH, 3),), 2),
+    ("LocalFeatureTransformer full", lambda dt: _nn("attention").LocalFeatureTransformer(
+        256, 8, ("self", "cross"), dt, attention="full"),
+     ((2 * WINDOW, 640, 256), (2 * WINDOW, 640, 256)), None),
+    ("Mlp", lambda dt: _nn("attention").Mlp(256, 1024, 256, dt), ((2 * WINDOW, 640, 256),), None),
+    ("RelPosEmb", lambda dt: _nn("attention").RelPosEmb(64, 128), ((1, 1, 40, 64, 128),), None),
+)
+# the card's f32 output against the CPU's (TF32 off, `set_precision`):
+# max |card - cpu| over max |cpu|; the fault (the LoFTR layers' linear
+# attention on the full-attention weights) must exceed it
+AUX_F32_TOL = 1e-4
+AUX_BF16_REPS = 5
+AUX_LAUNCHES = {"play_attention_fwd_kernel<0>": LAUNCHES_PER_WINDOW,
+                "corr_lookup_kernel": LAUNCHES_PER_WINDOW}
+AUX_READ_HW = (720, 1280)  # a Dynamic Replica / SceneFlow-size disparity and flow
+AUX_READ_REPS = 5
+AUX_DIR = REPO / "build" / "chip_smoke_aux"
+
+
+def _nn(module: str):
+    """A module of the port's `nn` package, imported when a phase needs it."""
+    import importlib
+
+    return importlib.import_module(f"ppmstereo_tpu_torch.nn.{module}")
+
+
+def _aux_seeded(build, dtype, flat=None):
+    """build(dtype) on the CPU with seeded weights (every parameter drawn,
+    `alpha1`'s zeros included), or with `flat` carried through
+    utils/weights.py; returns (module, its flat flax parameters)."""
+    import torch
+
+    from ppmstereo_tpu_torch.utils.weights import load_flax_params, model_to_flax
+
+    torch.manual_seed(AUX_SEED)
+    module = build(dtype)
+    if flat is None:
+        with torch.no_grad():
+            for name, p in module.named_parameters():
+                if not p.any():
+                    p.normal_(0.0, 0.5)
+        flat = model_to_flax(module)
+    else:
+        load_flax_params(module, flat)
+    return module.eval(), flat
+
+
+def _rel_max(got, want) -> float:
+    import torch
+
+    if isinstance(want, (tuple, list)):
+        return max(_rel_max(g, w) for g, w in zip(got, want))
+    got, want = got.detach().float().cpu(), want.detach().float()
+    if not torch.isfinite(got).all():
+        return math.inf
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _aux_module(name: str, build, shapes: tuple, cpu_items, smi: str) -> dict:
+    """One module: seeded f32 weights carried into a card copy, the card's f32
+    output against the CPU's on the same inputs, the bf16 copy timed."""
+    import torch
+
+    gen = torch.Generator().manual_seed(AUX_SEED)
+    xs = [torch.randn(s, generator=gen) for s in shapes]
+    cpu, flat = _aux_seeded(build, torch.float32)
+    card = _aux_seeded(build, torch.float32, flat)[0].cuda()
+    with torch.no_grad():
+        want = cpu(*(x[:cpu_items] for x in xs))
+        xs_card = [x.cuda() for x in xs]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = card(*xs_card)
+        torch.cuda.synchronize()
+        f32_s = time.perf_counter() - t0
+        if cpu_items is not None:
+            got = [g[:cpu_items] for g in got] if isinstance(got, tuple) else got[:cpu_items]
+        rel = _rel_max(got, want)
+        fault = None
+        if name.startswith("LocalFeatureTransformer"):  # the switch's other branch
+            wrong = _aux_seeded(lambda dt: _nn("attention").LocalFeatureTransformer(
+                256, 8, ("self", "cross"), dt), torch.float32, flat)[0].cuda()
+            fault = _rel_max(wrong(*xs_card), want)
+        bf16 = _aux_seeded(build, torch.bfloat16, flat)[0].cuda()
+        xs_bf16 = [x.bfloat16() for x in xs_card]
+        bf16_ms = cuda_time_ms(lambda: bf16(*xs_bf16), AUX_BF16_REPS)
+        out = bf16(*xs_bf16)
+    outs = out if isinstance(out, tuple) else (out,)
+    finite = all(bool(torch.isfinite(o.float()).all()) for o in outs)
+    log(f"aux {name} on {[tuple(s) for s in shapes]}: card f32 against the CPU "
+        f"(items {cpu_items or 'all'}) {rel:.3e} of max |cpu| (tol {AUX_F32_TOL})"
+        + (f", the linear-attention fault {fault:.3e}" if fault is not None else "")
+        + f"; f32 first call {f32_s:.3f}s; bf16 {bf16_ms:.3f} ms a call "
+        f"(mean of {AUX_BF16_REPS}), out {[tuple(o.shape) for o in outs]}, finite {finite}, "
+        f"on {smi}")
+    failures = []
+    if not rel <= AUX_F32_TOL:
+        failures.append(f"aux {name}: the card's f32 output is {rel:.3e} off the CPU's")
+    if fault is not None and not fault > AUX_F32_TOL:
+        failures.append(f"aux {name}: the linear-attention fault reads {fault:.3e}, inside "
+                        f"the limit {AUX_F32_TOL}")
+    if not finite:
+        failures.append(f"aux {name}: the bf16 output is not finite")
+    return dict(f32_rel=rel, fault=fault, f32_first_s=f32_s, bf16_ms=bf16_ms,
+                failures=failures)
+
+
+def _trace_counts(logdir: Path) -> dict:
+    """The launches of each AUX_LAUNCHES kernel, and the device time of all
+    kernels, in the Chrome trace the port's `trace` wrote into logdir."""
+    (path,) = logdir.glob("*.pt.trace.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    counts = {frag: sum(frag in e["name"] for e in kernels) for frag in AUX_LAUNCHES}
+    return dict(counts=counts, kernels=len(kernels), device_ms=sum(e["dur"] for e in kernels) / 1e3,
+                trace_mb=path.stat().st_size / 1e6)
+
+
+def _aux_reads(smi: str) -> dict:
+    """A 720x1280 PFM disparity and FLO flow written here, read natively
+    and through numpy: equal, and each reader's host ms (median)."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.data import frame_utils, native
+
+    rng = np.random.default_rng(AUX_SEED)
+    h, w = AUX_READ_HW
+    pfm, flo = AUX_DIR / "disp.pfm", AUX_DIR / "flow.flo"
+    frame_utils.write_pfm(str(pfm), rng.uniform(0, 200, (h, w)).astype(np.float32))
+    flow = rng.standard_normal((h, w, 2)).astype(np.float32)
+    with open(flo, "wb") as f:
+        np.array([frame_utils.FLO_MAGIC], np.float32).tofile(f)
+        np.array([w, h], np.int32).tofile(f)
+        flow.tofile(f)
+    native.available()  # the build, outside the times
+    readers = {"pfm native": (native.read_pfm, pfm), "pfm numpy": (frame_utils.read_pfm, pfm),
+               "flo native": (native.read_flo, flo), "flo numpy": (frame_utils.read_flow, flo)}
+    ms, arrays = {}, {}
+    for key, (read, path) in readers.items():
+        times = []
+        for _ in range(AUX_READ_REPS):
+            t0 = time.perf_counter()
+            arrays[key] = read(str(path))
+            times.append((time.perf_counter() - t0) * 1e3)
+        ms[key] = sorted(times)[len(times) // 2]
+    equal = {kind: bool(np.array_equal(arrays[f"{kind} native"], arrays[f"{kind} numpy"]))
+             for kind in ("pfm", "flo")}
+    log(f"aux reads of a {h}x{w} disparity (PFM) and flow (FLO): equal {equal}; host ms "
+        f"(median of {AUX_READ_REPS}) " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; on the host of {smi}")
+    return dict(equal=equal, ms=ms)
+
+
+def phase_aux(main_run: dict, smi: str, kernel1_ms: float) -> dict:
+    """The modules no model calls at full width (f32 against the CPU, bf16
+    timed); one steady main-path window timed with the port's `timed` and
+    traced with its `trace` (kernels 1 and 6 counted in the written trace);
+    the roofline of `utils/profiling.py` beside kernel 1's time (phase
+    kernels, `kernel1_ms`) and the window's device time; the native readers
+    on a 720p PFM and FLO."""
+    import torch
+
+    from ppmstereo_tpu_torch.utils import profiling
+
+    failures = []
+    modules = {}
+    for name, build, shapes, cpu_items in AUX_MODULES:
+        modules[name] = _aux_module(name, build, shapes, cpu_items, smi)
+        failures += modules[name]["failures"]
+        torch.cuda.empty_cache()
+
+    run = main_run["pred"].predictor._run_window
+    video = torch.from_numpy(main_run["video"][5:5 + WINDOW]).cuda()
+    shutil.rmtree(AUX_DIR, ignore_errors=True)
+    AUX_DIR.mkdir(parents=True)
+    run(video[:, 0], video[:, 1])
+    timings = {}
+    with profiling.timed("window", timings, device="cuda"):
+        run(video[:, 0], video[:, 1])
+    with profiling.trace(str(AUX_DIR / "trace")):
+        run(video[:, 0], video[:, 1])
+        torch.cuda.synchronize()
+    traced = _trace_counts(AUX_DIR / "trace")
+    if traced["counts"] != AUX_LAUNCHES:
+        failures.append(f"aux: the trace holds {traced['counts']} launches, want {AUX_LAUNCHES}")
+    play = profiling.play_attention_cost(1, WINDOW, 80 * 128, 5, 128)
+    iteration = profiling.ppm_iteration_cost(1, WINDOW, 80, 128)
+    log(f"aux window of {WINDOW} frames: {timings['window']:.3f}s (profiling.timed, "
+        f"device=cuda); traced: {traced['kernels']} kernels, {traced['device_ms']:.1f} ms of "
+        f"device time, launches {traced['counts']} (want {AUX_LAUNCHES}), trace "
+        f"{traced['trace_mb']:.1f} MB; on {smi}")
+    log(f"aux roofline (profiling.OpCost, H100 peaks {profiling.H100_BF16_FLOPS:.3g} FLOP/s, "
+        f"{profiling.H100_HBM_BYTES_S:.3g} B/s): play_attention_cost at the 1/4 shape "
+        f"{play.flops:.4g} FLOP, {play.bytes / 1e6:.1f} MB, light speed "
+        f"{play.light_speed_s * 1e3:.3f} ms ({play.bound}); kernel 1 {kernel1_ms:.3f} ms, "
+        f"{100 * play.light_speed_s * 1e3 / kernel1_ms:.1f}% of light speed; "
+        f"ppm_iteration_cost(1, {WINDOW}, 80, 128) {iteration.flops:.4g} FLOP, "
+        f"{iteration.bytes / 1e6:.1f} MB, light speed {iteration.light_speed_s * 1e3:.3f} ms "
+        f"({iteration.bound}), x{ITERS} iterations {ITERS * iteration.light_speed_s * 1e3:.3f} "
+        f"ms against the window's {traced['device_ms']:.1f} ms of device time; on {smi}")
+    reads = _aux_reads(smi)
+    if not all(reads["equal"].values()):
+        failures.append(f"aux: the native readers differ from numpy: {reads['equal']}")
+    shutil.rmtree(AUX_DIR, ignore_errors=True)
+    if failures:
+        raise RuntimeError("; ".join(failures))
+    return dict(modules=modules, window_s=timings["window"], traced=traced,
+                play_light_ms=play.light_speed_s * 1e3, kernel1_ms=kernel1_ms,
+                iteration_light_ms=iteration.light_speed_s * 1e3, reads=reads)
+
+
 # ---------------------------------------------------------------- modes
 # the window modes of `model_zoo` on the main path's clip (320x512, window
 # 10, 10 iterations, bf16, the anchor): (name, model_zoo keyword arguments)
@@ -4323,6 +4562,8 @@ def main() -> None:
         main_run = phase_main(smi)
     with phase("profile"):
         phase_profile(main_run, smi)
+    with phase("aux"):
+        phase_aux(main_run, smi, rows["fwd"][0]["ms"])
     with phase("modes"):
         modes_run = phase_modes(main_run, smi)
     with phase("config"):

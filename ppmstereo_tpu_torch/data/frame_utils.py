@@ -6,7 +6,7 @@ channels-last.
 
 PNGs go through the port's own codec (`data/png.py`), so no image library
 is needed. JPEG frames raise: of the datasets only VKITTI2, a training set,
-stores them.
+stores them. `read_gen` reads PFM and FLO through the native readers.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import re
 
 import numpy as np
 
+from ppmstereo_tpu_torch.data import native
 from ppmstereo_tpu_torch.data.png import read_png
 
 FLO_MAGIC = 202021.25
@@ -122,7 +123,9 @@ def read_vkitti2_depth(path: str) -> np.ndarray:
 
 
 def read_gen(path: str):
-    """Read a frame, flow or disparity file by its extension."""
+    """Read a frame, flow or disparity file by its extension. PFM and FLO go
+    through the native readers (`data/native.py`), as the JAX package's
+    `read_gen` does; `read_pfm` and `read_flow` are their plain versions."""
     ext = osp.splitext(path)[-1].lower()
     if ext == ".png":
         return read_image(path)
@@ -131,9 +134,9 @@ def read_gen(path: str):
     if ext in (".bin", ".raw"):
         return np.load(path)
     if ext == ".flo":
-        return read_flow(path).astype(np.float32)
+        return native.read_flo(path)
     if ext == ".pfm":
-        data = read_pfm(path).astype(np.float32)
+        data = native.read_pfm(path)
         return data if data.ndim == 2 else data[..., :-1]
     raise ValueError(f"unsupported extension: {path}")
 

@@ -1,7 +1,9 @@
-"""Sinusoidal encodings, LoFTR linear attention and the time/space
-attention blocks on (B, T, H, W, C) videos (counterpart of
-ppmstereo_tpu/nn/attention.py). Products that the JAX package accumulates
-in f32 are taken in f32 here too; the rest run in the module dtype.
+"""Sinusoidal encodings, LoFTR linear and full attention, the time/space
+attention blocks on (B, T, H, W, C) videos, and the transformer `Mlp` and
+decomposed relative position bias `RelPosEmb` that no model calls
+(counterpart of ppmstereo_tpu/nn/attention.py). Products that the JAX
+package accumulates in f32 are taken in f32 here too; the rest run in the
+module dtype.
 """
 
 from __future__ import annotations
@@ -62,12 +64,29 @@ def linear_attention(q, k, v, eps: float = 1e-6):
     return out * v_length
 
 
-class LoFTREncoderLayer(nn.Module):
-    """Projections, linear attention, merge and an MLP residual."""
+def full_attention(q, k, v):
+    """Softmax attention over (N, L, H, D) tokens: f32 logits, the softmax
+    over the key axis, the probabilities cast to v's dtype."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    logits = torch.einsum("nlhd,nshd->nlsh", q.float(), k.float())
+    probs = torch.softmax(scale * logits, dim=2).to(v.dtype)
+    return torch.einsum("nlsh,nshd->nlhd", probs, v)
 
-    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype = torch.float32):
+
+ATTENTIONS = {"linear": linear_attention, "full": full_attention}
+
+
+class LoFTREncoderLayer(nn.Module):
+    """Projections, linear (default) or full attention, merge and an MLP
+    residual."""
+
+    def __init__(self, d_model: int, nhead: int, dtype: torch.dtype = torch.float32,
+                 attention: str = "linear"):
         super().__init__()
+        if attention not in ATTENTIONS:
+            raise ValueError(f"attention {attention!r}: one of {sorted(ATTENTIONS)}")
         self.nhead = nhead
+        self.attention = ATTENTIONS[attention]
         self.q_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
         self.k_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
         self.v_proj = Linear(d_model, d_model, use_bias=False, dtype=dtype)
@@ -83,7 +102,7 @@ class LoFTREncoderLayer(nn.Module):
         q = self.q_proj(x).reshape(heads)
         k = self.k_proj(source).reshape(heads)
         v = self.v_proj(source).reshape(heads)
-        message = linear_attention(q, k, v).reshape(n, -1, d)
+        message = self.attention(q, k, v).reshape(n, -1, d)
         message = self.LayerNorm_0(self.merge(message))
         message = self.Dense_0(torch.cat([x, message], dim=-1))
         message = self.LayerNorm_1(self.Dense_1(F.relu(message)))
@@ -91,14 +110,15 @@ class LoFTREncoderLayer(nn.Module):
 
 
 class LocalFeatureTransformer(nn.Module):
-    """Self or cross LoFTR layers over two token sets."""
+    """Self or cross LoFTR layers over two token sets, with linear
+    (default) or full attention."""
 
     def __init__(self, d_model: int, nhead: int, layer_names: tuple,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, attention: str = "linear"):
         super().__init__()
         self.layer_names = tuple(layer_names)
         for i, _ in enumerate(self.layer_names):
-            self.add_module(f"layer_{i}", LoFTREncoderLayer(d_model, nhead, dtype))
+            self.add_module(f"layer_{i}", LoFTREncoderLayer(d_model, nhead, dtype, attention))
 
     def forward(self, feat0, feat1):
         for i, name in enumerate(self.layer_names):
@@ -169,3 +189,44 @@ class SpaceAttnBlock(nn.Module):
         b, t, h, w, c = x.shape
         tokens = x.reshape(b * t, h * w, c)
         return self.LoFTREncoderLayer_0(tokens, tokens).reshape(b, t, h, w, c)
+
+
+class Mlp(nn.Module):
+    """Transformer MLP: fc1, exact GELU, fc2 (hidden and output widths
+    default to the input's)."""
+
+    def __init__(self, in_features: int, hidden_features: int | None = None,
+                 out_features: int | None = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        hid = hidden_features or in_features
+        self.fc1 = Dense(in_features, hid, dtype=dtype)
+        self.fc2 = Dense(hid, out_features or in_features, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class RelPosEmb(nn.Module):
+    """Decomposed 2-D relative position bias: q (B, heads, H, W, d) ->
+    scores (B, heads, H, W, H, W), the sum of a height and a width term from
+    the embeddings `rel_height` / `rel_width`, (2 max_pos_size - 1, d),
+    drawn N(0, 1) as torch's nn.Embedding is."""
+
+    def __init__(self, max_pos_size: int, dim_head: int):
+        super().__init__()
+        self.max_pos_size = max_pos_size
+        n = 2 * max_pos_size - 1
+        self.rel_height = nn.Parameter(torch.randn(n, dim_head))
+        self.rel_width = nn.Parameter(torch.randn(n, dim_head))
+
+    def forward(self, q: torch.Tensor) -> torch.Tensor:
+        _, _, h, w, d = q.shape
+        pos = torch.arange(self.max_pos_size, device=q.device)
+        rel_ind = pos[None, :] - pos[:, None] + self.max_pos_size - 1
+        height_emb = self.rel_height[rel_ind[:h, :h].reshape(-1)].reshape(h, h, 1, d)
+        width_emb = self.rel_width[rel_ind[:w, :w].reshape(-1)].reshape(w, 1, w, d)
+        dtype = torch.promote_types(q.dtype, height_emb.dtype)  # jnp.einsum's promotion
+        q = q.to(dtype)
+        height_score = torch.einsum("bhxyd,xuvd->bhxyuv", q, height_emb.to(dtype))
+        width_score = torch.einsum("bhxyd,yuvd->bhxyuv", q, width_emb.to(dtype))
+        return height_score + width_score

@@ -1,13 +1,15 @@
 """RAFT-style feature encoders, channels-last (counterpart of
 ppmstereo_tpu/nn/encoder.py::ResidualBlock, BasicEncoder, BasicEncoderVFM,
-MultiLevelEncoderVFM).
+MultiLevelEncoderVFM, ResNetFPN, MultiLevelResNetFPN).
 
 BasicEncoder: a 7x7 stride-2 stem and three residual stages -> 1/4
 resolution, `output_dim` channels, instance norm. BasicEncoderVFM
 concatenates a foundation model's features before the output conv.
 MultiLevelEncoderVFM (PPMStereo-VDA) fuses the VDA fusion pyramid into
-1/16, 1/8 and 1/4 maps top-down. Left and right frames are folded into the
-batch axis by the caller.
+1/16, 1/8 and 1/4 maps top-down. ResNetFPN and MultiLevelResNetFPN, which
+no model calls, run four residual stages to 1/16 and fuse them top-down
+through 1x1 laterals. Left and right frames are folded into the batch axis
+by the caller.
 """
 
 from __future__ import annotations
@@ -17,25 +19,45 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ppmstereo_tpu_torch.nn.common import Conv
-from ppmstereo_tpu_torch.nn.norm import InstanceNorm
+from ppmstereo_tpu_torch.nn.norm import GroupNorm, InstanceNorm
 from ppmstereo_tpu_torch.ops.geometry import upsample2x_nearest
+
+NORM_FNS = ("instance", "group", "none")
+
+
+def add_norms(module: nn.Module, norm_fn: str, features: int, count: int,
+              num_groups: int = 8) -> list:
+    """The `count` norms of `module` in call order, registered under flax's
+    names: one parameterless InstanceNorm (`norm`), `GroupNorm_<i>` of
+    `num_groups` groups, or none."""
+    if norm_fn == "instance":
+        module.norm = InstanceNorm()
+        return [module.norm] * count
+    if norm_fn == "group":
+        for i in range(count):
+            module.add_module(f"GroupNorm_{i}", GroupNorm(num_groups, features))
+        return [getattr(module, f"GroupNorm_{i}") for i in range(count)]
+    if norm_fn == "none":
+        return [nn.Identity()] * count
+    raise ValueError(f"norm_fn {norm_fn!r}: one of {NORM_FNS}")
 
 
 class ResidualBlock(nn.Module):
     def __init__(self, in_planes: int, planes: int, stride: int = 1,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, norm_fn: str = "instance"):
         super().__init__()
         self.Conv_0 = Conv(in_planes, planes, (3, 3), stride=stride, dtype=dtype)
         self.Conv_1 = Conv(planes, planes, (3, 3), dtype=dtype)
         # the reference always applies the 1x1 projection
         self.Conv_2 = Conv(in_planes, planes, (1, 1), stride=stride,
                            padding=(0, 0), dtype=dtype)
-        self.norm = InstanceNorm()
+        self.norms = add_norms(self, norm_fn, planes, 3, planes // 8)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.relu(self.norm(self.Conv_0(x)))
-        y = F.relu(self.norm(self.Conv_1(y)))
-        x = self.norm(self.Conv_2(x))
+        n0, n1, n2 = self.norms
+        y = F.relu(n0(self.Conv_0(x)))
+        y = F.relu(n1(self.Conv_1(y)))
+        x = n2(self.Conv_2(x))
         return F.relu(x + y)
 
 
@@ -144,3 +166,58 @@ class MultiLevelEncoderVFM(nn.Module):
         f8 = self.decode_8x(torch.cat([x8, v8, self.upconv_8(f16)], dim=-1))
         f4 = self.decode_4x(torch.cat([x4, v4, self.upconv_4(f8)], dim=-1))
         return f4, f8, f16
+
+
+class ResNetFPN(nn.Module):
+    """ResNet-style FPN encoder: a 7x7 stride-2 stem, residual stages of
+    64, 128, 256 and 512 planes (1/2 to 1/16), then the 1/16, 1/8 and 1/4
+    maps fused top-down through 1x1 laterals (`lat5`, `lat4`, `lat3`) and
+    2x nearest upsampling; a 3x3 conv gives the 1/4 output."""
+
+    STAGES = ((64, 1), (128, 2), (256, 2), (512, 2))
+
+    def __init__(self, output_dim: int = 256, norm_fn: str = "instance",
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.Conv_0 = Conv(3, 64, (7, 7), stride=2, dtype=dtype)
+        self.stem_norms = add_norms(self, norm_fn, 64, 1)
+        planes_in = 64
+        for i, (planes, stride) in enumerate(self.STAGES):
+            self.add_module(f"ResidualBlock_{i}",
+                            ResidualBlock(planes_in, planes, stride, dtype, norm_fn))
+            planes_in = planes
+        for name, planes in (("lat5", 512), ("lat4", 256), ("lat3", 128)):
+            self.add_module(name, Conv(planes, output_dim, (1, 1), padding=(0, 0), dtype=dtype))
+        self._add_outputs(output_dim, dtype)
+
+    def _add_outputs(self, output_dim: int, dtype: torch.dtype) -> None:
+        self.Conv_1 = Conv(output_dim, output_dim, (3, 3), dtype=dtype)
+
+    def pyramid(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        """The fused maps (p3, p4, p5) at 1/4, 1/8 and 1/16."""
+        x = F.relu(self.stem_norms[0](self.Conv_0(x)))
+        c = []
+        for i in range(len(self.STAGES)):
+            x = getattr(self, f"ResidualBlock_{i}")(x)
+            c.append(x)
+        _, c3, c4, c5 = c
+        p5 = self.lat5(c5)
+        p4 = self.lat4(c4) + upsample2x_nearest(p5)
+        p3 = self.lat3(c3) + upsample2x_nearest(p4)
+        return p3, p4, p5
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.Conv_1(self.pyramid(x)[0])
+
+
+class MultiLevelResNetFPN(ResNetFPN):
+    """ResNetFPN with a 3x3 output conv at each of 1/4, 1/8 and 1/16
+    (`out4`, `out8`, `out16`): returns the three maps, finest first."""
+
+    def _add_outputs(self, output_dim: int, dtype: torch.dtype) -> None:
+        for name in ("out4", "out8", "out16"):
+            self.add_module(name, Conv(output_dim, output_dim, (3, 3), dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
+        p3, p4, p5 = self.pyramid(x)
+        return self.out4(p3), self.out8(p4), self.out16(p5)

@@ -1,7 +1,7 @@
 """Motion encoders and the context q/k projector on (B, T, H, W, C)
 (counterpart of ppmstereo_tpu/nn/motion.py::PCBlock, AttentionQK,
-BasicMotionEncoder, BasicMotionEncoderV2). 2-D convs fold (B, T) into the
-batch."""
+BasicMotionEncoder, BasicMotionEncoderV2, SKMotionEncoder). 2-D convs fold
+(B, T) into the batch."""
 
 from __future__ import annotations
 
@@ -13,17 +13,18 @@ from ppmstereo_tpu_torch.nn.common import Conv
 
 
 class PCBlock(nn.Module):
-    """Depthwise-conv and FFN residual block with depthwise kernels of 1 and
-    7 and a hidden width of 1.5 c_in (the motion encoder's `convc1`)."""
+    """Depthwise-conv and FFN residual block: one depthwise conv of each
+    kernel size in `k_conv` (1 and 7 in the motion encoder's `convc1`) and a
+    hidden width of 1.5 c_in."""
 
-    K_CONV = (1, 7)
-
-    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype = torch.float32):
+    def __init__(self, c_in: int, c_out: int, dtype: torch.dtype = torch.float32,
+                 k_conv: tuple = (1, 7)):
         super().__init__()
         hid = int(1.5 * c_in)
+        self.k_conv = tuple(k_conv)
         self.ffn1_a = Conv(c_in, hid, (1, 1), padding=(0, 0), dtype=dtype)
         self.ffn1_b = Conv(hid, c_in, (1, 1), padding=(0, 0), dtype=dtype)
-        for i, k in enumerate(self.K_CONV):
+        for i, k in enumerate(self.k_conv):
             self.add_module(f"dws_{i}", Conv(c_in, c_in, (k, k), groups=c_in, dtype=dtype))
         self.pw = Conv(c_in, c_in, (1, 1), padding=(0, 0), dtype=dtype)
         self.ffn2_a = Conv(c_in, hid, (1, 1), padding=(0, 0), dtype=dtype)
@@ -31,7 +32,7 @@ class PCBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = F.gelu(x + self.ffn1_b(F.gelu(self.ffn1_a(x))))
-        for i in range(len(self.K_CONV)):
+        for i in range(len(self.k_conv)):
             x = F.gelu(x + getattr(self, f"dws_{i}")(x))
         x = F.gelu(x + self.pw(x))
         return self.ffn2_b(F.gelu(self.ffn2_a(x)))
@@ -105,3 +106,24 @@ class BasicMotionEncoderV2(nn.Module):
         out = F.relu(self.final_conv(torch.cat([cor, flo, motion_hidden_state], dim=-1)))
         motion, hidden = out[..., :126], out[..., 126:]
         return torch.cat([motion, flow], dim=-1), hidden
+
+
+class SKMotionEncoder(nn.Module):
+    """SKFlow-style motion encoder of PCBlocks: corr (cor_planes) and flow
+    (2 channels) -> 128-ch motion features (126 + the flow). No model calls
+    it."""
+
+    def __init__(self, cor_planes: int, k_conv: tuple = (1, 15),
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.convc1 = PCBlock(cor_planes, 256, dtype, k_conv)
+        self.convc2 = PCBlock(256, 192, dtype, k_conv)
+        self.convf1 = Conv(2, 128, (1, 1), padding=(0, 0), dtype=dtype)
+        self.convf2 = PCBlock(128, 64, dtype, k_conv)
+        self.conv = PCBlock(64 + 192, 126, dtype, k_conv)
+
+    def forward(self, flow: torch.Tensor, corr: torch.Tensor) -> torch.Tensor:
+        cor = self.convc2(F.gelu(self.convc1(corr)))
+        flo = self.convf2(self.convf1(flow))
+        out = self.conv(torch.cat([cor, flo], dim=-1))
+        return torch.cat([out, flow], dim=-1)

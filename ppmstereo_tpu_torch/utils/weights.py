@@ -12,8 +12,10 @@ flax path names, so `params/a/b/<leaf>` is `a.b.<leaf>` with
                      torch's)
   scale  -> weight   LayerNorm, GroupNorm, FrozenBatchNorm
   bias, gamma (LayerScale, GRN), beta, time_embed, init_hidden_state,
-  DINOv2's cls_token and pos_embed, and FrozenBatchNorm's statistics mean
-  and var (buffers of the port) keep their names and layouts.
+  DINOv2's cls_token and pos_embed, FrozenBatchNorm's statistics mean
+  and var (buffers of the port), the FFT head's complex_weight ((out, in,
+  2): real and imaginary parts) and alpha1, and RelPosEmb's rel_height and
+  rel_width keep their names and layouts.
 
 A 4-D kernel is a ConvTranspose's where the model holds an
 `nn.ConvTranspose2d` at that path (`transposed_kernels`); the flat layout

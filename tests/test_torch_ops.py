@@ -170,6 +170,26 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                 )
 
 
+def test_native_library_and_peaks_are_the_ports_own():
+    """The port builds stereoio from its own `csrc/stereoio.cpp` and no
+    string of its sources names the repo's `native/` directory or the JAX
+    package's library; `utils/profiling.py` names no TPU peak."""
+    import re
+
+    from ppmstereo_tpu_torch.kernels import _build
+
+    assert (_build.CSRC / "stereoio.cpp").is_file()
+    assert '_build.build("stereoio")' in (REPO / "ppmstereo_tpu_torch/data/native.py").read_text()
+    for path in _port_sources():
+        for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str):
+                assert not re.search(r"(^|/)native(/|$)|libstereoio\.so", node.value), (
+                    f"{path.relative_to(REPO)} names {node.value!r}")
+    profiling = (REPO / "ppmstereo_tpu_torch/utils/profiling.py").read_text()
+    for tpu in ("V5E", "v5e", "TPU", "197e12", "819e9"):
+        assert tpu not in profiling
+
+
 def test_resolve_device_has_no_silent_cpu_fallback():
     assert resolve_device("cpu") == torch.device("cpu")
     if torch.cuda.is_available():
