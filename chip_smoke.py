@@ -155,6 +155,19 @@ it stopped):
                ungathered bank must exceed, and under seq x space 2 x 2 (4
                processes, kernel 5) each ringed play step against the
                unsharded play on its inputs at kernel 1's limits
+  7f. seq_train  the mesh's seq axis in training, 2 processes on the one
+               card (gloo, host-staged): 3 train steps at TrainConfig() with
+               6-frame clips (3 a rank; the shipped 5 does not divide over
+               2) from the anchor on one batch, through `train()`, against
+               the same steps in this process (bf16 losses within 1e-2),
+               the ranks' parameters bit-equal after every step, kernels
+               2-4 launched 40 / 20 / 20 times a step and rank (the
+               wrappers' counts, and in the third step's profiler trace),
+               seconds per step, peak memory, bytes received per step in
+               the forward and the backward (the recomputed iterations'
+               messages and the cotangents sent back); an f32 step of a
+               4-frame clip at 64x128 over seq 2 against one process at
+               tests/torch_train_parity.py's limits
   8. train     training: `train()` at the shipped TrainConfig() (320x512,
                5 frames, batch 2, 10 iterations, bf16) from the anchor, 4
                steps on one batch of the synthetic fallback, then 2 on fresh
@@ -1161,7 +1174,7 @@ def _one_train_step(dev: str, flat, batch: dict, doubled: int | None = None, mes
     load_flax_params(model, flat)
     model.to(dev)
     state = TrainState(model, TrainOptimizer(model, num_steps=1000), True,
-                       data_group=None if mesh is None else mesh.groups["data"])
+                       replica_group=None if mesh is None else mesh.replica_group)
     grads = {}
     names = {id(p): n for n, p in model.named_parameters()}
     optimizer_step = state.optimizer.step
@@ -1967,21 +1980,35 @@ def _digest(tensors) -> str:
 
 
 @contextmanager
-def _recorded_training(record: dict):
+def _recorded_training(record: dict, trace_last: bool = False):
     """Patch the trainer for one `train()` run: each train step timed under
-    torch.cuda.synchronize() with its kernel launches, the trainable
-    parameters hashed after it, the gradient all-reduce timed with its
-    bytes, and the gradients the optimiser reads at the first step kept
-    (`record["grads"]`, by parameter name, on the CPU)."""
+    torch.cuda.synchronize() with its kernel launches and the bytes received
+    over a seq axis in its forward and in its backward (`sharding.RECEIVED`:
+    the recomputed iterations' messages and the cotangents' count in the
+    backward), the trainable parameters hashed after it, the gradient
+    all-reduce timed with its bytes, and the gradients the optimiser reads
+    at the first step kept (`record["grads"]`, by parameter name, on the
+    CPU). With `trace_last`, step DATA_TRAIN_STEPS runs under torch.profiler
+    with the device traced alone (`record["traced"]`, `_train_kernels`)."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
+    from ppmstereo_tpu_torch.parallel import sharding
     from ppmstereo_tpu_torch.train import step as step_module
     from ppmstereo_tpu_torch.train import trainer
     from ppmstereo_tpu_torch.train.state import TrainOptimizer
 
-    record.update(step_s=[], launches=[], digests=[], allreduce_s=[], allreduce_bytes=[])
+    record.update(step_s=[], launches=[], digests=[], allreduce_s=[], allreduce_bytes=[],
+                  received=[])
     train_step, reduce, opt_step = (trainer.train_step, step_module.all_reduce_gradients,
                                     TrainOptimizer.step)
+    predict = step_module.predictions
+    forward_end: list = []
+
+    def counted_predictions(*args):
+        out = predict(*args)
+        forward_end.append(dict(sharding.RECEIVED))
+        return out
     build = trainer.build_train_model
     names = {}
 
@@ -1993,11 +2020,21 @@ def _recorded_training(record: dict):
     def timed_step(state, batch):
         torch.cuda.synchronize()
         before, t0 = _launch_counts(), time.perf_counter()
-        out = train_step(state, batch)
+        start = dict(sharding.RECEIVED)
+        if trace_last and len(record["step_s"]) == DATA_TRAIN_STEPS - 1:
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                out = train_step(state, batch)
+                torch.cuda.synchronize()
+            record["traced"] = _train_kernels(prof)
+        else:
+            out = train_step(state, batch)
         torch.cuda.synchronize()
         record["step_s"].append(time.perf_counter() - t0)
         after = _launch_counts()
         record["launches"].append({k: after[k] - before[k] for k in after})
+        mid, end = forward_end.pop(), dict(sharding.RECEIVED)
+        record["received"].append({"forward": {k: mid[k] - start[k] for k in start},
+                                   "backward": {k: end[k] - mid[k] for k in start}})
         record["digests"].append(_digest(p for g in state.optimizer.groups for p in g))
         return out
 
@@ -2017,25 +2054,29 @@ def _recorded_training(record: dict):
 
     trainer.build_train_model, trainer.train_step = built, timed_step
     step_module.all_reduce_gradients, TrainOptimizer.step = timed_reduce, first_grads
+    step_module.predictions = counted_predictions
     try:
         yield
     finally:
         trainer.build_train_model, trainer.train_step = build, train_step
         step_module.all_reduce_gradients, TrainOptimizer.step = reduce, opt_step
+        step_module.predictions = predict
 
 
-def _data_train(out_dir: Path, batch: dict) -> dict:
-    """train() at TrainConfig() from the anchor, DATA_TRAIN_STEPS steps on the
-    global `batch` (each rank takes its block in a group); returns the
-    recorded steps and the losses of the run's metrics log (rank 0's, None
-    on the other ranks). `out_dir` must not exist yet: the caller clears
-    it, and deletes it after the run (every rank of a group uses it)."""
+def _data_train(out_dir: Path, batch: dict, trace_last: bool = False, **cfg_kwargs) -> dict:
+    """train() at TrainConfig(**cfg_kwargs) from the anchor, DATA_TRAIN_STEPS
+    steps on the global `batch` (each rank takes its part in a group), the
+    last one traced with `trace_last`; returns the recorded steps
+    (`_recorded_training`) and the losses of the run's metrics log (rank
+    0's, None on the other ranks). `out_dir` must not exist yet: the caller
+    clears it, and deletes it after the run (every rank of a group uses
+    it)."""
     from ppmstereo_tpu_torch.train.trainer import TrainConfig, train
     from ppmstereo_tpu_torch.utils.weights import load_npz
 
-    cfg = TrainConfig(exp_dir=str(out_dir), log_freq=1)
+    cfg = TrainConfig(exp_dir=str(out_dir), log_freq=1, **cfg_kwargs)
     record: dict = {}
-    with _recorded_training(record):
+    with _recorded_training(record, trace_last):
         train(cfg, loader=[batch] * DATA_TRAIN_STEPS, max_steps=DATA_TRAIN_STEPS,
               init_params=load_npz(ANCHOR), device="cuda")
     log_path = out_dir / "metrics.jsonl"
@@ -2071,18 +2112,15 @@ def _small_batch() -> dict:
             "valid": np.stack([s["valid"][:, 0] for s in samples])}
 
 
-def _small_step_against(ref_path: str, mesh, rank: int, world: int) -> dict:
-    """The f32 small step over the mesh's data axis (this rank's block of
-    the batch) against the one-process step saved at `ref_path`."""
+def _small_step_against(ref_path: str, mesh, batch: dict) -> dict:
+    """The f32 small step over the mesh (`batch`: this rank's part of the
+    batch) against the one-process step saved at `ref_path`."""
     import torch
 
-    from ppmstereo_tpu_torch.parallel.sharding import local_batch
     from ppmstereo_tpu_torch.train.state import onecycle_lr
     from ppmstereo_tpu_torch.utils.weights import load_npz
 
-    loss, grads, params, opt = _one_train_step("cuda", load_npz(ANCHOR),
-                                               local_batch(_small_batch(), rank, world),
-                                               mesh=mesh)
+    loss, grads, params, opt = _one_train_step("cuda", load_npz(ANCHOR), batch, mesh=mesh)
     ref = torch.load(ref_path, weights_only=True)
     lr0 = onecycle_lr(0, opt.num_steps, opt.lr)
     n_off = sum(int(((params[n] - p).abs() > lr0 / 2).sum()) for n, p in ref["params"].items())
@@ -2107,6 +2145,7 @@ def _data_child(rank: int, world: int, batch: dict, video, sequences, ref_grads_
     from ppmstereo_tpu_torch.models.zoo import model_zoo
     from ppmstereo_tpu_torch.parallel.collectives import host_staged
     from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ppmstereo_tpu_torch.parallel.sharding import local_batch
     from ppmstereo_tpu_torch.utils.weights import load_npz
 
     torch.cuda.set_device(0)
@@ -2121,7 +2160,7 @@ def _data_child(rank: int, world: int, batch: dict, video, sequences, ref_grads_
     del got, want
 
     mesh = make_mesh(MeshSpec(data=world), timeout=timedelta(seconds=DATA_TIMEOUT_S))
-    small = _small_step_against(small_ref_path, mesh, rank, world)
+    small = _small_step_against(small_ref_path, mesh, local_batch(_small_batch(), rank, world))
     params = load_npz(ANCHOR)
     pred = model_zoo("PPMStereoModel", kernel_size=WINDOW, iters=ITERS, params=params,
                      batch_windows=2, mesh=mesh)
@@ -2277,6 +2316,222 @@ def phase_data(smi: str) -> dict:
                 launches={k: sum(step[k] for step in readings[0]["launches"])
                           for k in readings[0]["launches"][0]},
                 play_launches=readings[0]["play"], lookup_launches=readings[0]["lookup"])
+
+
+# the seq phase in training: the mesh's seq axis over SEQ_TRAIN_RANKS
+# processes sharing the card (gloo, staged through pinned host buffers):
+# DATA_TRAIN_STEPS train steps at TrainConfig() with SEQ_TRAIN_FRAMES-frame
+# clips (the shipped 5 does not divide over 2: the trainer refuses it, as
+# the JAX package's placement of the batch does), each rank 3 frames of both
+# clips, on one fixed batch, the last step profiled; an f32 step of a small
+# clip; each against the same work in this process. The bf16 losses
+# are held at the data phase's DATA_BF16_LOSS_TOL (bf16 steps are not
+# batch-invariant: a call of 3 frames is not one of 6 to the libraries),
+# the f32 step at tests/torch_train_parity.py's limits: the loss within
+# SEQ_TRAIN_LOSS_TOL relative, every significant gradient (one-element
+# tensors too) within TRAIN_GRAD_TOL, at most TRAIN_UPDATE_TOL of the
+# updated elements off by more than lr / 2; the ranks' parameters must stay
+# bit-equal after every step
+SEQ_TRAIN_RANKS = 2
+SEQ_TRAIN_FRAMES = 6
+SEQ_TRAIN_DIR = REPO / "build" / "chip_smoke_seq_train"
+SEQ_TRAIN_SMALL = (1, 4, 64, 128)  # clips, frames, height, width of the f32 step
+SEQ_TRAIN_LOSS_TOL = 1e-5
+# the train kernels as the profiler names them (kernel 2 is the forward
+# template's WITH_LSE instance)
+SEQ_TRAIN_TRACE = {"play_attention_fwd_res": "play_attention_fwd_kernel<1>",
+                   "play_attention_bwd_dq": "play_attention_bwd_dq_kernel",
+                   "play_attention_bwd_dkv": "play_attention_bwd_dkv_kernel"}
+
+
+def _seq_small_batch() -> dict:
+    """SEQ_TRAIN_SMALL's batch: the synthetic dataset's clip of seed 0."""
+    import numpy as np
+
+    from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
+
+    _, frames, h, w = SEQ_TRAIN_SMALL
+    s = SyntheticStereoDataset(num_seqs=1, sample_len=frames, height=h, width=w, seed=0)[0]
+    return {"left": s["img"][None, :, 0], "right": s["img"][None, :, 1],
+            "disparity": s["disp"][None, :, 0], "valid": s["valid"][None, :, 0].astype(np.float32)}
+
+
+def _train_kernels(prof) -> dict:
+    """The train kernels' launches and device ms in a profiler's trace,
+    counted by SEQ_TRAIN_TRACE's names, and the trace's device ms."""
+    import torch
+
+    averages = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {"device_ms": sum(e.self_device_time_total for e in averages) / 1e3}
+    for name, fragment in SEQ_TRAIN_TRACE.items():
+        hits = [e for e in averages if fragment in e.key]
+        out[name] = dict(launches=sum(e.count for e in hits),
+                         ms=sum(e.self_device_time_total for e in hits) / 1e3)
+    return out
+
+
+def _seq_train_child(rank: int, world: int, batch: dict, ref_grads_path: str,
+                     small_ref_path: str):
+    """One process of the seq-training phase: the train steps over seq (this
+    rank's frames of the fixed batch, the last one traced; its gradients
+    after step 1 read against the one-process run's) and the f32 small step
+    over seq."""
+    from datetime import timedelta
+
+    import torch
+
+    from ppmstereo_tpu_torch.kernels import corr_lookup as kl
+    from ppmstereo_tpu_torch.kernels import play_attention as pa
+    from ppmstereo_tpu_torch.parallel.collectives import host_staged
+    from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
+    from ppmstereo_tpu_torch.parallel.sharding import local_frames
+
+    torch.cuda.set_device(0)
+    for fn in (pa.play_attention, pa.play_attention_fwd_res, pa.play_attention_bwd_dq,
+               pa.play_attention_bwd_dkv, kl.corr_lookup_kernel):
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    run = _data_train(SEQ_TRAIN_DIR / "seq", batch, trace_last=True,
+                      sample_len=SEQ_TRAIN_FRAMES, seq_parallel=world)
+    run["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    want = torch.load(ref_grads_path, weights_only=True)
+    got = run.pop("grads")
+    run["grad"] = grad_agreement(got, want)
+    run["grad_names"] = sorted(got) == sorted(want)
+    del got, want
+    torch.cuda.empty_cache()
+    mesh = make_mesh(MeshSpec(seq=world), timeout=timedelta(seconds=SEQ_TIMEOUT_S))
+    small = _small_step_against(small_ref_path, mesh,
+                                local_frames(_seq_small_batch(), rank, world))
+    return dict(train=run, small=small,
+                staged=host_staged(mesh.groups["seq"], torch.device("cuda")))
+
+
+def phase_seq_train(smi: str) -> dict:
+    """The mesh's seq axis in training over SEQ_TRAIN_RANKS processes on the
+    one card (gloo, host-staged): train steps at TrainConfig() with
+    SEQ_TRAIN_FRAMES-frame clips and an f32 small step, each against the
+    same work in this process. Every failure raises."""
+    import numpy as np
+    import torch
+
+    from ppmstereo_tpu_torch.data.datasets import fetch_dataloader
+    from ppmstereo_tpu_torch.parallel.launch import run_group
+    from ppmstereo_tpu_torch.train.trainer import TrainConfig
+    from ppmstereo_tpu_torch.utils.weights import load_npz
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(SEQ_TRAIN_DIR, ignore_errors=True)
+    cfg = TrainConfig(sample_len=SEQ_TRAIN_FRAMES)
+    batch = next(iter(fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
+                                       batch_size=cfg.batch_size, num_workers=cfg.num_workers,
+                                       seed=cfg.seed)))
+    torch.cuda.reset_peak_memory_stats()
+    one = _data_train(SEQ_TRAIN_DIR / "one", batch, sample_len=SEQ_TRAIN_FRAMES)
+    one_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    shutil.rmtree(SEQ_TRAIN_DIR / "one" / "ckpt")  # ~780 MB
+    ref_grads = SEQ_TRAIN_DIR / "ref_grads.pt"
+    torch.save(one.pop("grads"), ref_grads)
+    small_loss, small_grads, small_params, _ = _one_train_step("cuda", load_npz(ANCHOR),
+                                                               _seq_small_batch())
+    small_ref = SEQ_TRAIN_DIR / "small_ref.pt"
+    torch.save({"loss": small_loss, "grads": small_grads, "params": small_params}, small_ref)
+    del small_grads, small_params
+    torch.cuda.empty_cache()
+    t_ref = time.perf_counter() - t_phase
+
+    t0 = time.perf_counter()
+    results = run_group(_seq_train_child, SEQ_TRAIN_RANKS,
+                        (batch, str(ref_grads), str(small_ref)), timeout_s=SEQ_TIMEOUT_S,
+                        threads=4)
+    wall_s = time.perf_counter() - t0
+    losses = [json.loads(x)["loss"]
+              for x in (SEQ_TRAIN_DIR / "seq" / "metrics.jsonl").read_text().splitlines()]
+    shutil.rmtree(SEQ_TRAIN_DIR, ignore_errors=True)  # rank 0's checkpoint: ~780 MB
+    loss_rel = [abs(a - b) / abs(b) for a, b in zip(losses, one["losses"])]
+    log(f"seq train phase: {SEQ_TRAIN_RANKS} processes sharing one card ({smi}) over gloo, "
+        f"{'host-staged' if results[0]['staged'] else 'device'}; time-sharing, not a scaling "
+        f"result. One process, TrainConfig(sample_len={SEQ_TRAIN_FRAMES}): steps "
+        f"{[round(x, 3) for x in one['step_s']]} s, peak {one_peak_gb:.2f} GB, losses "
+        f"{one['losses']}")
+    log(f"seq train, batch {cfg.batch_size} of {SEQ_TRAIN_FRAMES} frames "
+        f"({SEQ_TRAIN_FRAMES // SEQ_TRAIN_RANKS} a rank), {DATA_TRAIN_STEPS} steps on one "
+        f"batch: global losses {losses}, against one process "
+        f"{[f'{x:.2e}' for x in loss_rel]} relative (tol {DATA_BF16_LOSS_TOL})")
+    readings = []
+    for rank, res in enumerate(results):
+        tr, sm = res["train"], res["small"]
+        received = [{phase: {k: v / 1e6 for k, v in step[phase].items()} for phase in step}
+                    for step in tr["received"]]
+        r = dict(rank=rank, step_s=tr["step_s"], launches=tr["launches"],
+                 allreduce_s=tr["allreduce_s"], allreduce_bytes=tr["allreduce_bytes"],
+                 received_mb=received, peak_gb=tr["peak_gb"], grad=tr["grad"],
+                 traced=tr["traced"], small=sm)
+        readings.append(r)
+        fwd, bwd = received[0]["forward"], received[0]["backward"]
+        traced = tr["traced"]
+        log(f"seq train rank {rank}: seconds per step {[round(x, 3) for x in tr['step_s']]} "
+            f"(step {DATA_TRAIN_STEPS} under the profiler); "
+            f"peak {tr['peak_gb']:.2f} GB; gradient all-reduce per step "
+            f"{[round(x, 4) for x in tr['allreduce_s']]} s for "
+            f"{tr['allreduce_bytes'][0] / 1e6:.1f} MB; launches per step {tr['launches'][0]} "
+            f"(expected {TRAIN_LAUNCHES_PER_STEP})")
+        log(f"seq train rank {rank}: received in step 1, forward: bank {fwd['bank']:.1f}, "
+            f"halos {fwd['halo']:.1f}, other frames {fwd['frames']:.1f} MB; backward: the "
+            f"recomputed iterations' bank {bwd['bank']:.1f}, halos {bwd['halo']:.1f}, other "
+            f"{bwd['frames']:.1f} MB, the cotangents' bank {bwd['bank_grad']:.1f}, halos "
+            f"{bwd['halo_grad']:.1f}, other {bwd['frames_grad']:.1f} MB; total "
+            f"{sum(fwd.values()) + sum(bwd.values()):.1f} MB")
+        log(f"seq train rank {rank}: step {DATA_TRAIN_STEPS} traced (the device alone): "
+            f"{traced['device_ms']:.1f} ms of device time; kernels 2 / 3 / 4 in the trace "
+            + ", ".join(f"{traced[k]['launches']} launches {traced[k]['ms']:.2f} ms"
+                        for k in SEQ_TRAIN_TRACE)
+            + f"; bf16 gradients after step 1 against one process (read, not held): tensors "
+            f"{tr['grad']['tensor'][0]:.3e} ({tr['grad']['tensor'][1]}), one-element "
+            f"{tr['grad']['scalar'][0]:.3e} ({tr['grad']['scalar'][1]})")
+        log(f"seq train rank {rank}: f32 step {SEQ_TRAIN_SMALL} against one process on the "
+            f"card: loss {sm['loss_rel']:.2e} relative (tol {SEQ_TRAIN_LOSS_TOL}); gradients: "
+            f"tensors {sm['grad']['tensor'][0]:.3e} ({sm['grad']['tensor'][1]}), one-element "
+            f"{sm['grad']['scalar'][0]:.3e} ({sm['grad']['scalar'][1]}; tol {TRAIN_GRAD_TOL} "
+            f"both); {sm['update_off']:.2e} of the updated elements off by more than lr/2 (tol "
+            f"{TRAIN_UPDATE_TOL})")
+    log(f"seq train phase: {time.perf_counter() - t_phase:.1f} s ({t_ref:.1f} s of one-process "
+        f"references, {wall_s:.1f} s for the group with process start)")
+
+    if not all(res["staged"] for res in results):
+        raise RuntimeError("the seq train phase expects a gloo group staged through the host")
+    if len(losses) != DATA_TRAIN_STEPS or not all(np.isfinite(losses)) or not all(
+            x <= DATA_BF16_LOSS_TOL for x in loss_rel):
+        raise RuntimeError(f"seq losses {losses} against one process's {one['losses']}")
+    for r, res in zip(readings, results):
+        tr = res["train"]
+        if tr["digests"] != results[0]["train"]["digests"] or len(tr["digests"]) != (
+                DATA_TRAIN_STEPS):
+            raise RuntimeError(f"seq train rank {r['rank']}: parameters differ from rank 0's")
+        if any(step != TRAIN_LAUNCHES_PER_STEP for step in r["launches"]):
+            raise RuntimeError(f"seq train rank {r['rank']}: launches per step {r['launches']}")
+        for name in SEQ_TRAIN_TRACE:
+            if r["traced"][name]["launches"] != TRAIN_LAUNCHES_PER_STEP[name]:
+                raise RuntimeError(f"seq train rank {r['rank']}: {name} launched "
+                                   f"{r['traced'][name]['launches']} times in the traced step, "
+                                   f"expected {TRAIN_LAUNCHES_PER_STEP[name]}")
+        if not all(step["forward"][k] > 0 and step["backward"][k] > 0
+                   and step["backward"][k + "_grad"] > 0
+                   for step in tr["received"] for k in ("bank", "halo", "frames")):
+            raise RuntimeError(f"seq train rank {r['rank']}: a message kind received nothing "
+                               f"{tr['received']}")
+        sm = res["small"]
+        if not (tr["grad_names"] and sm["loss_rel"] <= SEQ_TRAIN_LOSS_TOL
+                and sm["grad"]["tensor"][0] <= TRAIN_GRAD_TOL
+                and sm["grad"]["scalar"][0] <= TRAIN_GRAD_TOL
+                and sm["update_off"] <= TRAIN_UPDATE_TOL):
+            raise RuntimeError(f"seq train rank {r['rank']}: the f32 step against one process "
+                               f"{sm}")
+    return dict(readings=readings, one=one, one_peak_gb=one_peak_gb, losses=losses,
+                loss_rel=loss_rel, wall_s=wall_s,
+                launches={k: sum(step[k] for step in readings[0]["launches"])
+                          for k in readings[0]["launches"][0]})
 
 
 # kernel-name fragments -> the layer that launches them
@@ -4580,6 +4835,8 @@ def main() -> None:
         data_run = phase_data(smi)
     with phase("seq"):
         seq_run = phase_seq(main_run, small_run, smi)
+    with phase("seq_train"):
+        seq_train_run = phase_seq_train(smi)
     with phase("train"):
         train_run = phase_train(smi)
         train_run["recipe"] = phase_train_recipe(smi)
@@ -4595,8 +4852,9 @@ def main() -> None:
     # runs (rank 0; test mode), summed with the training path's (0: train
     # mode runs the plain lookup); the data path's rank 0 (its windows for
     # kernels 1 and 6, its train steps for kernels 2-4) adds to each, and so
-    # do the seq path's rank 0 (its windows for kernels 1 and 6) and its
-    # seq x space rank 0 (the small clip's ringed plays for kernel 5). Each
+    # do the seq path's rank 0 (its windows for kernels 1 and 6), its
+    # seq x space rank 0 (the small clip's ringed plays for kernel 5) and
+    # the seq train path's rank 0 (its train steps for kernels 2-4). Each
     # path is driven with its counts set to 0 just before. Kernels 1 and 6
     # in the modes and eval paths' runs sit beside them.
     vda_play = sum(run["play_launches"] for run in vda_run.values())
@@ -4608,7 +4866,7 @@ def main() -> None:
     lookup += (train_zoo_launches["corr_lookup"] + data_run["lookup_launches"]
                + seq_run["lookup_launches"])
     train_launches = {k: n + train_zoo_launches[k] + data_run["launches"][k]
-                      for k, n in train_run["launches"].items()}
+                      + seq_train_run["launches"][k] for k, n in train_run["launches"].items()}
     launches = dict(train_launches,
                     play_attention_fwd=(main_run["launches"] + vda_play + data_run["play_launches"]
                                         + seq_run["play_launches"]),
@@ -4652,6 +4910,12 @@ def main() -> None:
     for record in records[1:4]:
         record["launches_data_per_step"] = [r["launches"][0][record["name"]]
                                             for r in data_run["readings"]]
+        # per rank of the seq train phase: per step (the wrapper's count) and
+        # in its traced step (the profiler's), with that step's device ms
+        record["launches_seq_train_per_step"] = [r["launches"][0][record["name"]]
+                                                 for r in seq_train_run["readings"]]
+        record["seq_train_traced"] = [r["traced"][record["name"]]
+                                      for r in seq_train_run["readings"]]
     for record, key in ((records[0], "play"), (records[5], "lookup")):
         record["launches_data_windows"] = [r[key] for r in data_run["readings"]]
         # per rank of the seq phase, over the main clip's windows

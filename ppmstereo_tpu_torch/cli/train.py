@@ -19,6 +19,13 @@
     # block of every global batch of --batch_size clips
     torchrun --nproc_per_node N -m ppmstereo_tpu_torch.cli.train --batch_size 2N
 
+    # each clip's frames over 2 cards (PPMStereo; --sample_len must divide
+    # by --seq_parallel), and data x seq = 2 x 2 on 4
+    torchrun --nproc_per_node 2 -m ppmstereo_tpu_torch.cli.train --seq_parallel 2 \\
+        --sample_len 6
+    torchrun --nproc_per_node 4 -m ppmstereo_tpu_torch.cli.train --seq_parallel 2 \\
+        --sample_len 6 --batch_size 2
+
 With --config the preset (read by `utils/config.py::load_yaml`, its
 `model_kwargs` a mapping of the model config's fields) replaces the other flags
 but --device; trailing KEY=VALUE arguments override TrainConfig fields
@@ -26,9 +33,13 @@ either way (e.g. log_freq=1). Runs on `cuda` unless `--device` names another
 device; raises without a card. Under torchrun the CLI joins the launch's
 process group (`parallel/mesh.py::join_group`: rank r runs on card
 LOCAL_RANK, over NCCL when every rank has a card of its own, over gloo
-when ranks share one) and trains data-parallel over it; --data_parallel
-(0: every rank, cut to a divisor of the batch) must then match the group.
---seq_parallel and --space_parallel above 1 raise (ROADMAP §1 item 7.3).
+when ranks share one) and trains over the mesh (data, seq) =
+(--data_parallel, --seq_parallel), which must span the group
+(--data_parallel 0: the ranks that --seq_parallel leaves, cut to a divisor
+of the batch). --seq_parallel above 1 spreads each clip's frames over the
+seq axis, for ppmstereo (and memstereo) only: the other models' seq axis
+is ROADMAP §1 item 7.1b. --space_parallel above 1 raises (item 7.3's space
+half, after item 7.2).
 As in the JAX CLI, the in-training evaluation is off here (`train(cfg)`);
 --evaluate_freq sets its interval for callers of
 `train(..., enable_eval=True)`.

@@ -29,14 +29,18 @@ near-tie of frame scores cannot split the processes. This is the JAX
 package's ring path (`ring_attention=True` under a `space` mesh) with its
 divisibility rule; the rest of the window is not sharded here.
 
-Under a mesh whose `seq` axis has S > 1 processes (test mode only), the
-frames of a window whose T divides by S spread over the axis: process s
-runs frames [s T/S, (s+1) T/S) through the encoders, SST and the three
-stages, and the outputs are all-gathered, so every process returns the
-whole window. Per-frame work needs no message: the encoders, SST's self
-and cross layers, the pyramid and its lookup (kernel 6), the motion
-encoder, the uncertainty head, the space attention and `batch_mean`. What
-mixes frames exchanges them (`parallel/sharding.py::FrameShard`):
+Under a mesh whose `seq` axis has S > 1 processes, the frames of a window
+spread over the axis: process s runs frames [s T/S, (s+1) T/S) through the
+encoders, SST and the three stages. In test mode a window whose T divides
+by S is sliced so, and the outputs are all-gathered, so every process
+returns the whole window. In train mode each process passes and gets its
+own block of a clip of T = S n frames (`parallel/sharding.py::
+local_frames`): predictions and uncertainties of its n frames, which the
+loss reads without a gather. Per-frame work needs no message: the
+encoders, SST's self and cross layers, the pyramid and its lookup (kernel
+6 in test mode), the motion encoder, the uncertainty head, the space
+attention and `batch_mean`. What mixes frames exchanges them
+(`parallel/sharding.py::FrameShard`):
   * the 3-D convolutions (the GRU's time pass, the flow head, the 3x3x3
     mask head) and the 3-D convex upsample take a time halo from the
     neighbouring blocks, zero frames past the clip's ends;
@@ -51,8 +55,24 @@ mixes frames exchanges them (`parallel/sharding.py::FrameShard`):
     values once an iteration (the JAX package's one bank gather,
     `_replicate_bank_over_seq`), and this process's queries attend over
     the picked frames, whichever process computed them.
-A window whose T does not divide by S runs whole on every process of the
-axis (the JAX predictor's rule for tail windows). What one seq = 2 window
+In test mode a window whose T does not divide by S runs whole on every
+process of the axis (the JAX predictor's rule for tail windows).
+
+Training differentiates through every message: the gathers' and halos'
+backward sends each cotangent back to the frames' owner
+(`parallel/collectives.py`), so a process's gradient is its frames' share
+of the clip's, and the train step's sum over data x seq is the gradient of
+the whole batch (kernels 3-4's dk and dv of the gathered bank reach the
+other processes' frames this way). Each checkpointed iteration is
+recomputed in the backward pass, and the recomputation issues its gathers
+and halos again. Every process issues them in the same order: the
+processes build the same graph (the same modules in the same order, each
+message one autograd node whatever the process's place on the axis, the
+picks reused from the forward), and autograd walks a graph in an order
+that its structure fixes, so the recomputations and the backward's own
+messages meet in step.
+
+What one seq = 2 window
 at 320x512 in bf16 (the shipped config) gathers: the 1/4 stage's values,
 10 x 80 x 128 x 128 x 2 B = 26.2 MB per iteration (each process receives
 the other's half, 13.1 MB), and its keys with the PE (2C = 256 channels),
@@ -123,7 +143,7 @@ from ppmstereo_tpu_torch.ops.geometry import (
 )
 from ppmstereo_tpu_torch.ops.upsample import convex_upsample_2d, convex_upsample_3d
 from ppmstereo_tpu_torch.parallel import collectives, ring_attention
-from ppmstereo_tpu_torch.parallel.sharding import frame_shard
+from ppmstereo_tpu_torch.parallel.sharding import block_shard, frame_shard
 
 
 SHIPPED_ATTENTION = "self_stereo_temporal_update_time_update_space"
@@ -298,7 +318,7 @@ class PPMUpdateLoop(nn.Module):
                    picks: list | None, shard=None):
         """One pick-and-play iteration. `stage` holds the loop-invariant
         inputs (pyramid, coords0, query_pe, key_aug, sim_score, inp).
-        Under a seq `shard` (test mode) the tensors hold this rank's frames,
+        Under a seq `shard` the tensors hold this rank's frames,
         except key_aug, the whole window's (gathered once a stage), and the
         scores' and strive's source axis, the window's T frames.
 
@@ -356,7 +376,8 @@ class PPMUpdateLoop(nn.Module):
         # 6. GRU update and flow head (and, in train mode, the convex mask
         # of the new state)
         if self.collect_preds:
-            net, delta, mask = ub(net, inp, motion, motion_global, compute_mask=True)
+            net, delta, mask = ub(net, inp, motion, motion_global, compute_mask=True,
+                                  shard=shard)
         else:
             (net, delta), mask = ub(net, inp, motion, motion_global, shard=shard), None
         flow = flow + delta.float()
@@ -370,13 +391,14 @@ class PPMUpdateLoop(nn.Module):
         up = convex_upsample_2d(flow.reshape(b * t, h, w, 2), mask.reshape(b * t, h, w, -1), 4)
         return up.reshape(b, t, 4 * h, 4 * w, 2)
 
-    def _full_res(self, flow, mask, uncertainty):
+    def _full_res(self, flow, mask, uncertainty, shard=None):
         """Train-mode outputs of one iteration at full resolution: the
         convex upsample (x4) of the disparity, then a bilinear
         align-corners resize by interp_scale (x`interp_scale` values), and
-        the uncertainty resized by 4 * interp_scale (align_corners=False)."""
+        the uncertainty resized by 4 * interp_scale (align_corners=False).
+        Under a seq `shard` the 3-D upsample takes its time halo."""
         s = self.interp_scale
-        flow_up = self._upsample(flow, mask)
+        flow_up = self._upsample(flow, mask, shard)
         h, w = uncertainty.shape[2], uncertainty.shape[3]
         unc_up = interp_ac_false(uncertainty.float(), (4 * s * h, 4 * s * w))
         if s > 1:
@@ -394,8 +416,8 @@ class PPMUpdateLoop(nn.Module):
         picks: when a list is given, each iteration's top-k frame indices
         are appended to it (the tests compare them with the JAX model's).
         iters: this call's iteration count (default: the stage's).
-        shard: this rank's frames of a window over the seq axis (test mode;
-        `parallel/sharding.py::FrameShard`), None for the whole window."""
+        shard: this rank's frames of a window over the seq axis
+        (`parallel/sharding.py::FrameShard`), None for the whole window."""
         b, t, _, _, _ = flow.shape
         t_all = t
         if shard is not None:  # the bank's keys do not change across the loop
@@ -414,7 +436,7 @@ class PPMUpdateLoop(nn.Module):
             flow, net, motion_hidden, strive, uncertainty, mask = run(
                 stage, flow, net, motion_hidden, strive, picked, picks, shard)
             if self.collect_preds:
-                pred, unc = self._full_res(flow, mask, uncertainty)
+                pred, unc = self._full_res(flow, mask, uncertainty, shard)
                 preds.append(pred)
                 uncs.append(unc)
         if mask is None:  # test mode reads the mask of the final state only
@@ -445,8 +467,9 @@ class PPMStereo(nn.Module):
     play steps run as the ring over it (test mode only); with a `data` axis
     of n > 1, each process runs its block of the global batch and the
     picked scores' batch mean is the global batch's (test and train mode);
-    with a `seq` axis of S > 1 (test mode only), a window whose T divides
-    by S spreads its frames over it (see the module's docstring)."""
+    with a `seq` axis of S > 1, a window whose T divides by S spreads its
+    frames over it in test mode, and in train mode each process passes its
+    block of the clip's frames (see the module's docstring)."""
 
     def __init__(self, cfg: PPMStereoConfig = PPMStereoConfig(), iters: int = 10,
                  test_mode: bool = False, mesh=None):
@@ -454,10 +477,6 @@ class PPMStereo(nn.Module):
         space_group = data_group = seq_group = None
         if mesh is not None:
             if mesh.shape["seq"] > 1:
-                if not test_mode:
-                    raise NotImplementedError(
-                        f"mesh {mesh.shape}: the seq axis in training is ROADMAP §1 item 7.3; "
-                        "it runs in test mode")
                 if cfg.use_vfm:
                     raise NotImplementedError(
                         f"mesh {mesh.shape}: PPMStereo-VDA's backbone attends across a "
@@ -466,8 +485,10 @@ class PPMStereo(nn.Module):
                 seq_group = mesh.groups["seq"]
             if mesh.shape["space"] > 1:
                 if not test_mode:
-                    raise ValueError("the ring play attention is inference only: a mesh "
-                                     "with space > 1 needs test_mode=True")
+                    raise NotImplementedError(
+                        f"mesh {mesh.shape}: the space axis in training is ROADMAP §1 item "
+                        "7.3's space half, after item 7.2 (every convolution of a window "
+                        "sharded over space); the ring play attention runs in test mode")
                 space_group = mesh.groups["space"]
             if mesh.shape["data"] > 1:
                 data_group = mesh.batch_group
@@ -599,10 +620,12 @@ class PPMStereo(nn.Module):
         """image1/image2 (B,T,H,W,3) in [0,255] -> (disparity, uncertainty)
         in test mode, (predictions, uncertainties) in train mode.
 
-        Under a seq mesh every process passes the whole window (and the
-        whole window's feats and flow_init) and gets the whole window's
-        outputs; a window whose T divides by the axis runs this process's
-        frames (see the module's docstring).
+        Under a seq mesh in test mode every process passes the whole window
+        (and the whole window's feats and flow_init) and gets the whole
+        window's outputs; a window whose T divides by the axis runs this
+        process's frames. In train mode every process passes its own block
+        of the clip's frames (`parallel/sharding.py::local_frames`) and gets
+        that block's predictions (see the module's docstring).
 
         feats: the per-frame features of `encode_frames` for these frames
         (the encoder cache of the sliding-window predictor assembles them
@@ -624,6 +647,10 @@ class PPMStereo(nn.Module):
         (`encode_frames`)."""
         if warm_iters is not None and flow_init is None:
             raise ValueError("warm_iters applies to a warm start: pass flow_init")
+        if not self.test_mode:  # the inputs are this process's block
+            shard = block_shard(image1.shape[1], self.seq_group)
+            return self._forward(image1, image2, flow_init, feats, warm_iters, picks,
+                                 frames_per_call, shard)
         shard = frame_shard(image1.shape[1], self.seq_group)
         if shard is not None:  # this process's frames of the window
             image1, image2 = shard.local(image1), shard.local(image2)

@@ -13,7 +13,21 @@ The `seq` axis's two messages (`parallel/sharding.py::FrameShard`):
 `gather_frames`, the blocks of a window's frames of every rank joined along
 dim 1, and `time_halo`, a block extended by its neighbours' edge frames.
 Both move the tensors' bytes as they are, so any dtype (bf16 included)
-passes through gloo.
+passes through gloo. Both have a backward, for training over the axis:
+
+  * the gather's is the adjoint of an all-gather along dim 1: each rank
+    sends every other rank that rank's block of its cotangent and sums
+    what it receives with its own block, in rank order and in f32 at least
+    (a reduce-scatter by point-to-point messages);
+  * the halo's sends the cotangents of the two halos back to the
+    neighbours that own those frames, and each rank adds what it receives
+    to its edge frames; the cotangents of the zero frames past the clip's
+    ends are dropped. A block thinner than the halo goes through the
+    gather, and so through the gather's backward.
+
+Either takes `on_message(nbytes, backward)`, called with the bytes this
+rank received at each message of the forward (backward False) and of the
+backward pass (True).
 """
 
 from __future__ import annotations
@@ -110,9 +124,26 @@ def _from_bytes(raw: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return raw.view(like.dtype).reshape(like.shape)
 
 
-def gather_frames(x: torch.Tensor, group) -> torch.Tensor:
-    """The frame blocks x (B, n, ...) of every rank of `group`, joined along
-    the frame axis (dim 1) in rank order: (B, S n, ...) on every rank."""
+def _exchange(sends: dict, group, device: torch.device) -> dict:
+    """Point-to-point messages over `group` in one batch: `sends` maps a
+    peer (its rank in the group) to the bytes (uint8) sent to it, and each
+    such peer sends as many bytes back (host-staged under gloo on a card).
+    Returns the received bytes by peer, on `device`."""
+    staged = host_staged(group, device)
+    ops, recv = [], {}
+    for peer, raw in sorted(sends.items()):
+        peer_rank = dist.get_global_rank(group, peer)
+        raw = _to_host(raw) if staged else raw
+        recv[peer] = torch.empty(raw.shape, dtype=raw.dtype, device=raw.device,
+                                 pin_memory=staged)
+        ops += [dist.P2POp(dist.isend, raw, peer_rank, group),
+                dist.P2POp(dist.irecv, recv[peer], peer_rank, group)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return {peer: raw.to(device) for peer, raw in recv.items()}
+
+
+def _all_gather_frames(x: torch.Tensor, group) -> torch.Tensor:
     device = x.device
     src = _bytes(x)
     if host_staged(group, device):
@@ -122,37 +153,91 @@ def gather_frames(x: torch.Tensor, group) -> torch.Tensor:
     return torch.cat([_from_bytes(p.to(device), x) for p in parts], dim=1)
 
 
-def time_halo(x: torch.Tensor, h: int, group) -> torch.Tensor:
+class _GatherFrames(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, on_message):
+        ctx.group, ctx.on_message = group, on_message
+        size = dist.get_world_size(group)
+        if on_message is not None:
+            on_message(x.numel() * x.element_size() * (size - 1), False)
+        return _all_gather_frames(x, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group = ctx.group
+        me, size = dist.get_rank(group), dist.get_world_size(group)
+        blocks = grad.chunk(size, dim=1)
+        mine = blocks[me].contiguous()
+        peers = [p for p in range(size) if p != me]
+        got = _exchange({p: _bytes(blocks[p]) for p in peers}, group, grad.device)
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        total = None
+        for p in range(size):  # in rank order
+            part = (mine if p == me else _from_bytes(got[p], mine)).to(acc)
+            total = part if total is None else total + part
+        if ctx.on_message is not None:
+            ctx.on_message(mine.numel() * mine.element_size() * (size - 1), True)
+        return total.to(grad.dtype), None, None
+
+
+def gather_frames(x: torch.Tensor, group, on_message=None) -> torch.Tensor:
+    """The frame blocks x (B, n, ...) of every rank of `group`, joined along
+    the frame axis (dim 1) in rank order: (B, S n, ...) on every rank.
+    Differentiable: the gradient that reaches x is the sum over the ranks of
+    the gradient of their results' frames of this rank's block."""
+    return _GatherFrames.apply(x, group, on_message)
+
+
+class _TimeHalo(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, h, group, on_message):
+        ctx.h, ctx.group, ctx.on_message = h, group, on_message
+        n = x.shape[1]
+        me, size = dist.get_rank(group), dist.get_world_size(group)
+        edges = {me - 1: x[:, :h], me + 1: x[:, n - h:]}
+        peers = [p for p in edges if 0 <= p < size]
+        got = _exchange({p: _bytes(edges[p]) for p in peers}, group, x.device)
+        if on_message is not None:
+            on_message(sum(raw.numel() for raw in got.values()), False)
+        before, after = (_from_bytes(got[p], edges[p]) if p in got
+                         else torch.zeros_like(edges[p]) for p in (me - 1, me + 1))
+        return torch.cat([before, x, after], dim=1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        h, group = ctx.h, ctx.group
+        n = grad.shape[1] - 2 * h
+        me, size = dist.get_rank(group), dist.get_world_size(group)
+        # the halos' cotangents go back to the frames' owners: the previous
+        # rank's last h frames, the next rank's first h
+        halos = {me - 1: grad[:, :h], me + 1: grad[:, n + h:]}
+        peers = [p for p in halos if 0 <= p < size]
+        got = _exchange({p: _bytes(halos[p]) for p in peers}, group, grad.device)
+        dx = grad[:, h: n + h].clone(memory_format=torch.contiguous_format)
+        acc = torch.promote_types(grad.dtype, torch.float32)
+        for p, frames in ((me - 1, slice(0, h)), (me + 1, slice(n - h, n))):
+            if p in got:
+                dx[:, frames] = (dx[:, frames].to(acc)
+                                 + _from_bytes(got[p], halos[p]).to(acc)).to(dx.dtype)
+        if ctx.on_message is not None:
+            ctx.on_message(sum(raw.numel() for raw in got.values()), True)
+        return dx, None, None, None
+
+
+def time_halo(x: torch.Tensor, h: int, group, on_message=None) -> torch.Tensor:
     """This rank's frame block x (B, n, ...) extended by h frames on each
     side: the previous rank's last h and the next rank's first h frames
     (rank order of `group`), zero frames past the clip's ends (the zero
-    padding of a convolution over time): (B, n + 2h, ...).
+    padding of a convolution over time): (B, n + 2h, ...). Differentiable
+    (see the module's docstring).
 
     One message to each neighbour (`batch_isend_irecv`). A block thinner
     than the halo (n < h) takes its halo from the gathered window instead."""
     n = x.shape[1]
-    me, size = dist.get_rank(group), dist.get_world_size(group)
     if n < h:
-        whole = gather_frames(x, group)
+        me = dist.get_rank(group)
+        whole = gather_frames(x, group, on_message)
         pad = x.new_zeros(x.shape[0], h, *x.shape[2:])
         whole = torch.cat([pad, whole, pad], dim=1)
         return whole[:, me * n: me * n + n + 2 * h]
-    device = x.device
-    staged = host_staged(group, device)
-    edge = x[:, :h]
-    ops, recv = [], {}
-    for peer, send in ((me - 1, edge), (me + 1, x[:, n - h:])):
-        if not 0 <= peer < size:
-            continue
-        raw = _bytes(send)
-        raw = _to_host(raw) if staged else raw
-        recv[peer] = torch.empty(raw.shape, dtype=raw.dtype, device=raw.device,
-                                 pin_memory=staged)
-        peer_rank = dist.get_global_rank(group, peer)
-        ops += [dist.P2POp(dist.isend, raw, peer_rank, group),
-                dist.P2POp(dist.irecv, recv[peer], peer_rank, group)]
-    for req in dist.batch_isend_irecv(ops):
-        req.wait()
-    before, after = (_from_bytes(recv[p].to(device), edge) if p in recv
-                     else torch.zeros_like(edge) for p in (me - 1, me + 1))
-    return torch.cat([before, x, after], dim=1)
+    return _TimeHalo.apply(x, h, group, on_message)

@@ -9,18 +9,21 @@ the JAX mesh reshapes its device list, so the `space` neighbours of a rank
 are consecutive ranks.
 
   data   batches of clips or windows: each rank holds its contiguous
-         block of the global batch (`parallel/sharding.py`); the train
-         step sums the gradients over it, and PPMStereo's batch mean of
-         the picked frames' scores is taken over it (`batch_group`)
-  seq    the frames of a window (inference): each rank holds its block of
-         frames [s T/S, (s+1) T/S) (`parallel/sharding.py::FrameShard`, its
-         offset and count); PPMStereo exchanges time halos and gathers
-         what mixes frames over it, and a window whose T is not divisible
-         by S runs whole on every rank of the axis
-  space  the rows of a window: the ring play attention shards each play
-         step's query rows and picked memory over it
+         block of the global batch (`parallel/sharding.py`); PPMStereo's
+         batch mean of the picked frames' scores is taken over it
+         (`batch_group`)
+  seq    the frames of a window or a training clip: each rank holds its
+         block of frames [s T/S, (s+1) T/S) (`parallel/sharding.py::
+         FrameShard`, its offset and count); PPMStereo exchanges time halos
+         and gathers what mixes frames over it; in inference a window whose
+         T is not divisible by S runs whole on every rank of the axis
+  space  the rows of a window (inference): the ring play attention shards
+         each play step's query rows and picked memory over it
 
-Any axis may be 1.
+Any axis may be 1. The ranks that share a `space` coordinate, data x seq of
+them, hold between them the whole global batch: training sums its
+gradients, its loss's denominators and its metrics over them
+(`replica_group`).
 
 One process per card is the PyTorch idiom. `join_group` joins the group
 that `torchrun --nproc_per_node N` describes in the environment; the
@@ -62,12 +65,17 @@ class Mesh:
     batch_group: a second subgroup over the ranks of `groups["data"]`,
     for PPMStereo's batch mean only. A checkpointed train-mode iteration
     issues that mean again in the backward pass, so on a group of its own
-    it cannot interleave with the other collectives of the data axis."""
+    it cannot interleave with the other collectives of the data axis.
+
+    replica_group: the ranks that share this rank's `space` coordinate
+    (data x seq of them), over which training sums the gradients, the
+    loss's denominators and the metrics; None when data x seq is 1."""
 
     spec: MeshSpec
     coords: dict
     groups: dict = field(repr=False)
     batch_group: object = field(default=None, repr=False)
+    replica_group: object = field(default=None, repr=False)
 
     @property
     def shape(self) -> dict:
@@ -102,7 +110,13 @@ def make_mesh(spec: MeshSpec, timeout: timedelta | None = None) -> Mesh:
             if rank in members:
                 groups[axis] = group
                 batch_group = second if axis == "data" else batch_group
-    return Mesh(spec, coords, groups, batch_group)
+    replica_group = None
+    if spec.data * spec.seq > 1:
+        for members in np.moveaxis(ranks, 2, 0).reshape(spec.space, -1).tolist():
+            group = dist.new_group(members, timeout=timeout)
+            if rank in members:
+                replica_group = group
+    return Mesh(spec, coords, groups, batch_group, replica_group)
 
 
 def backend_for(device: torch.device, ranks_on_host: int) -> str:

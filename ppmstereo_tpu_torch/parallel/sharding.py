@@ -1,18 +1,21 @@
-"""How a global batch maps onto the `data` axis, and a window's frames onto
+"""How a global batch maps onto the `data` axis, and a clip's frames onto
 the `seq` axis (counterpart of ppmstereo_tpu/parallel/sharding.py and of
 the window sharding of ppmstereo_tpu/parallel/streaming.py).
 
 The JAX package lays a training batch out as P("data", "seq", "space"):
-clips over `data`, in device order. Here each rank holds its contiguous
-block of clips of the global batch, in rank order: rank r of n holds clips
-[r B/n, (r+1) B/n). The port shards nothing over `seq` or `space` in
-training. A batch that the axis does not divide raises, as the JAX
-sharding does.
+clips over `data`, frames over `seq`, in device order. Here each rank
+holds its contiguous block of clips of the global batch, in rank order:
+rank r of n holds clips [r B/n, (r+1) B/n) (`local_batch`); over a seq
+axis of S ranks, rank s holds frames [s T/S, (s+1) T/S) of its block's
+clips (`local_frames`). A batch that the data axis does not divide, or a
+clip that the seq axis does not divide, raises, as the JAX sharding does.
+The port shards nothing over `space` in training.
 
-In inference a window's T frames spread over the `seq` axis of S ranks:
-rank s holds frames [s T/S, (s+1) T/S) (`FrameShard`). A window whose T
-is not divisible by S runs replicated on every rank of the axis, the JAX
-predictor's rule for tail windows (`frame_shard`).
+In inference a window's T frames spread over the `seq` axis likewise
+(`FrameShard`); a window whose T is not divisible by S runs replicated on
+every rank of the axis, the JAX predictor's rule for tail windows
+(`frame_shard`). In training a rank holds its block of every clip
+(`block_shard`).
 """
 
 from __future__ import annotations
@@ -28,8 +31,21 @@ from ppmstereo_tpu_torch.parallel import collectives
 # set to 0: the play's memory bank ("bank": its keys once a stage, its
 # values every iteration), the convolutions' time halos ("halo") and every
 # other frame gather ("frames": pooled descriptors, frame confidences, the
-# 1/16 time attention's input and the outputs)
-RECEIVED = {"bank": 0, "halo": 0, "frames": 0}
+# 1/16 time attention's input and, in inference, the outputs). Each message
+# counts when it is sent: a train-mode iteration is checkpointed, so the
+# backward pass recomputes it and its gathers and halos count again under
+# the same three keys. The "_grad" keys count the backward's own messages:
+# the cotangents that the gathers and halos send back to the frames' owners.
+RECEIVED = {"bank": 0, "halo": 0, "frames": 0, "bank_grad": 0, "halo_grad": 0,
+            "frames_grad": 0}
+
+
+def _counter(kind: str):
+    """on_message of `collectives.gather_frames` / `time_halo`: the bytes
+    go to RECEIVED[kind], or to RECEIVED[kind + "_grad"] in the backward."""
+    def count(nbytes: int, backward: bool) -> None:
+        RECEIVED[kind + "_grad" * backward] += nbytes
+    return count
 
 
 def local_slice(batch_size: int, rank: int, size: int) -> slice:
@@ -50,11 +66,28 @@ def local_batch(batch: Mapping, rank: int, size: int) -> dict:
     return {k: v[mine] for k, v in batch.items()}
 
 
+def local_frames(batch: Mapping, index: int, size: int) -> dict:
+    """Rank `index`'s frames of every clip of a batch over a seq axis of
+    `size` ranks: frames [index T/size, (index+1) T/size) of every entry
+    (numpy arrays or tensors, (B, T, ...)). A clip whose T the axis does
+    not divide raises."""
+    frames = {v.shape[1] for v in batch.values()}
+    if len(frames) != 1:
+        raise ValueError(f"batch entries of {sorted(frames)} frames")
+    t = frames.pop()
+    if t % size:
+        raise ValueError(f"a clip of {t} frames does not divide over a seq axis of {size}")
+    n = t // size
+    return {k: v[:, index * n: (index + 1) * n] for k, v in batch.items()}
+
+
 @dataclass(frozen=True)
 class FrameShard:
     """This rank's block of a window of `total` frames over the seq axis
     (`group`, `size` ranks; this rank's position `index`), and the messages
-    that join the blocks. Tensors are (B, T, ...): frames on dim 1."""
+    that join the blocks. Tensors are (B, T, ...): frames on dim 1. The
+    messages have a backward (`parallel/collectives.py`), so a train-mode
+    forward through them is differentiable."""
 
     group: object
     index: int
@@ -77,9 +110,7 @@ class FrameShard:
 
     def gather(self, x, kind: str = "frames"):
         """Every rank's block of x joined in frame order (the whole window)."""
-        out = collectives.gather_frames(x, self.group)
-        RECEIVED[kind] += x.numel() * x.element_size() * (self.size - 1)
-        return out
+        return collectives.gather_frames(x, self.group, _counter(kind))
 
     def gather_bank(self, x):
         """The play's memory bank (keys or values) of the whole window."""
@@ -88,12 +119,7 @@ class FrameShard:
     def halo(self, x, h: int):
         """x extended by h frames on each side from the neighbouring ranks'
         blocks (zero frames past the clip's ends): (B, count + 2h, ...)."""
-        frame = x[:, :1].numel() * x.element_size()
-        if self.count < h:
-            RECEIVED["halo"] += frame * self.count * (self.size - 1)
-        else:
-            RECEIVED["halo"] += frame * h * ((self.index > 0) + (self.index < self.size - 1))
-        return collectives.time_halo(x, h, self.group)
+        return collectives.time_halo(x, h, self.group, _counter("halo"))
 
 
 def frame_shard(t: int, group) -> FrameShard | None:
@@ -106,3 +132,13 @@ def frame_shard(t: int, group) -> FrameShard | None:
     if t % size:
         return None
     return FrameShard(group, dist.get_rank(group), size, t)
+
+
+def block_shard(n: int, group) -> FrameShard | None:
+    """This rank's share of a training clip of which it holds the block of
+    n frames (`local_frames`) over the seq `group`: a clip of n S frames.
+    None without a group."""
+    if group is None:
+        return None
+    size = dist.get_world_size(group)
+    return FrameShard(group, dist.get_rank(group), size, n * size)

@@ -6,13 +6,14 @@ adjusted_gamma = 0.9^(15 / (n - 1)), a valid mask that also excludes
 |disparity| >= 700, and the uncertainty target
 |exp(-0.9 |err| / 7) + 1e-2 - uncertainty|. Masked means are sum / sum.
 
-Over a data axis (`group`: each rank holds its block of the global batch)
-every masked mean is the global batch's, as in the JAX loss under data
-sharding: the numerators are the rank's own, the denominator (which
-carries no gradient) is all-reduced. The loss a rank returns is then its
-share: the ranks' shares add up to the global loss, and so do their
-gradients (`train/step.py` sums them). The metrics are the global batch's
-on every rank.
+Over the mesh's data and seq axes (`group`, `parallel/mesh.py::
+Mesh.replica_group`: each rank holds its block of the global batch's clips
+and its block of their frames) every masked mean is the global batch's,
+as in the JAX loss under P("data", "seq") sharding: the numerators are the
+rank's own, the denominator (which carries no gradient) is all-reduced.
+The loss a rank returns is then its share: the ranks' shares add up to the
+global loss, and so do their gradients (`train/step.py` sums them). The
+metrics are the global batch's on every rank.
 """
 
 from __future__ import annotations
@@ -32,7 +33,7 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.
     (B, T, H, W, 1); uncertainties optional, like flow_preds.
 
     Returns (loss, metrics): metrics are 0-d tensors epe, 1px, 3px, 5px.
-    With a data-axis `group` the loss is this rank's share of the global
+    With a `group` (data x seq) the loss is this rank's share of the global
     batch's and the metrics are the global batch's."""
     flow_preds = flow_preds.float()
     flow_gt = flow_gt.float()[..., :1]

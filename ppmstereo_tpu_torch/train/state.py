@@ -107,7 +107,7 @@ class TrainOptimizer:
     def gradients(self) -> list[torch.Tensor]:
         """The .grad of every parameter this optimiser updates, in a fixed
         order; an unused parameter's is zero-filled first (a zero gradient,
-        as in JAX), so every rank of a data axis holds the same list."""
+        as in JAX), so every rank of a mesh holds the same list."""
         grads = []
         for group in self.groups:
             for p in group:
@@ -118,7 +118,7 @@ class TrainOptimizer:
 
     def step(self) -> bool:
         """Apply (or skip) one update from the parameters' .grad, then clear
-        them. Returns whether the update was applied. Over a data axis the
+        them. Returns whether the update was applied. Over a mesh the
         gradients must be the reduced ones (`train/step.py`): the finite
         guard and the clips then take the same decision on every rank."""
         grads = self.gradients()
@@ -153,15 +153,17 @@ class TrainOptimizer:
 class TrainState:
     """The model, its optimiser, whether the model has an uncertainty head
     (`build_train_model`'s second output: a model without one returns its
-    predictions alone), the number of train steps taken and the data
-    axis's process group (None in one process): the train step's loss is
-    then the global batch's and its gradients are summed over the group."""
+    predictions alone), the number of train steps taken and the process
+    group of the ranks that hold the global batch between them, data x seq
+    (`parallel/mesh.py::Mesh.replica_group`; None in one process): the
+    train step's loss is then the global batch's and its gradients are
+    summed over the group."""
 
     def __init__(self, model: nn.Module, optimizer: TrainOptimizer,
-                 has_uncertainty: bool, step: int = 0, data_group=None):
+                 has_uncertainty: bool, step: int = 0, replica_group=None):
         self.model = model
         self.optimizer = optimizer
         self.has_uncertainty = has_uncertainty
         self.step = step
-        self.data_group = data_group
+        self.replica_group = replica_group
         self.staging: dict = {}  # pinned host buffers of the gradient all-reduce

@@ -5,13 +5,16 @@ update of the optimiser. Models without an uncertainty head (DynamicStereo,
 BiDAStereo, StereoAnyVideo) return their predictions alone; the loss then
 has no uncertainty term, as under the JAX trainer's `_wrap_no_uncertainty`.
 
-Over a data axis (`state.data_group`) each rank's loss is its share of the
-global batch's, and the gradients are summed over the axis after the
-backward pass, before the optimiser reads them: what one process computes
-on the global batch, as XLA's all-reduce gives the JAX trainer. The sum
-runs after `backward()`, not overlapped with it, so it cannot interleave
-with the batch mean that the checkpointed iterations issue again in the
-backward pass."""
+Over the mesh's data and seq axes (`state.replica_group`, data x seq
+ranks: each holds its block of the global batch's clips and of their
+frames) each rank's loss is its share of the global batch's, and the
+gradients are summed over the group after the backward pass, before the
+optimiser reads them: what one process computes on the global batch, as
+XLA's all-reduce gives the JAX trainer. The sum runs after `backward()`,
+not overlapped with it, so it cannot interleave with the messages that
+the checkpointed iterations issue again in the backward pass (the batch
+mean over data, the frame gathers and time halos over seq) or with the
+cotangents that the gathers and halos send back."""
 
 from __future__ import annotations
 
@@ -39,20 +42,20 @@ def train_step(state: TrainState, batch: dict) -> tuple[TrainState, dict]:
     3px, 5px, loss) as 0-d tensors; reading them waits for the device."""
     preds, uncs = predictions(state, batch["left"], batch["right"])
     loss, metrics = sequence_loss(preds, batch["disparity"], batch["valid"],
-                                  uncertainties=uncs, group=state.data_group)
+                                  uncertainties=uncs, group=state.replica_group)
     loss.backward()
     loss = loss.detach()
-    if state.data_group is not None:
+    if state.replica_group is not None:
         all_reduce_gradients(state)
-        loss = all_reduce_(loss.clone(), state.data_group)  # the shares' sum
+        loss = all_reduce_(loss.clone(), state.replica_group)  # the shares' sum
     state.optimizer.step()
     state.step += 1
     return state, dict(metrics, loss=loss)
 
 
 def all_reduce_gradients(state: TrainState) -> None:
-    """Sum the gradients of every parameter the optimiser updates over the
-    data axis, in one message per dtype (under gloo on a card through a
+    """Sum the gradients of every parameter the optimiser updates over
+    `state.replica_group` (data x seq), in one message per dtype (under gloo on a card through a
     pinned host buffer that `state.staging` keeps for the next step).
     Frozen parameters have none and take no part; an unused one's
     zero-filled gradient does, so every rank sends the same message.
@@ -63,12 +66,12 @@ def all_reduce_gradients(state: TrainState) -> None:
     for dtype, grads in by_dtype.items():
         flat = torch.cat([g.reshape(-1) for g in grads])
         host = None
-        if host_staged(state.data_group, flat.device):
+        if host_staged(state.replica_group, flat.device):
             host = state.staging.get(dtype)
             if host is None or host.numel() != flat.numel():
                 host = state.staging[dtype] = torch.empty(flat.shape, dtype=dtype,
                                                           pin_memory=True)
-        all_reduce_(flat, state.data_group, host)
+        all_reduce_(flat, state.replica_group, host)
         start = 0
         for g in grads:
             g.copy_(flat[start: start + g.numel()].view_as(g))

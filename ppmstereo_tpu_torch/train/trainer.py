@@ -6,6 +6,7 @@ card or data-parallel over a process group (one process per card).
     state = train(TrainConfig(model_name="stereoanyvideo"), device="cuda")
 
     # N cards: torchrun --nproc_per_node N -m ppmstereo_tpu_torch.cli.train
+    # a clip's frames over 2 of them: ... cli.train --seq_parallel 2 --sample_len 6
 
 `model_name` picks one of the JAX trainer's six models (`build_train_model`):
 ppmstereo and memstereo (PPMStereo), ppmstereo_vda (PPMStereo with the
@@ -17,17 +18,24 @@ as `init_params` (e.g. `load_npz("checkpoints/anchor_r5.npz")`, or an
 import CLI's npz) with a fresh optimiser; a run whose `exp_dir` holds a
 checkpoint resumes from it.
 
-Data parallelism: in an initialised process group (`parallel/mesh.py::
-join_group`, which the train CLI calls) the group's ranks form the mesh's
-`data` axis. Each rank loads its block of every global batch of
-`batch_size` clips, and the train step sums the gradients over the axis
-(`train/step.py`): the step is the one-process step on the global batch,
-as the JAX trainer's under `MeshSpec(data=N)`. The initial parameters are
-rank 0's; a resume is read by every rank from the same file. Only rank 0
-writes checkpoints and the metrics log and runs the in-training
-evaluation, which the other ranks wait for. The JAX trainer's `seq` and
-`space` axes (ROADMAP §1 item 7.3) and uint8 images on the wire are
-refused.
+Parallelism: in an initialised process group (`parallel/mesh.py::
+join_group`, which the train CLI calls) the group's ranks form the mesh
+(data, seq) = (data_parallel, seq_parallel), row-major: ranks r S .. r S +
+S - 1 share data coordinate r. Each data coordinate loads its block of
+every global batch of `batch_size` clips; over a seq axis of S > 1
+(PPMStereo only) the S ranks of a data coordinate load the same clips and
+each takes its block of their frames (`parallel/sharding.py::
+local_frames`), so a clip of `sample_len` frames the axis does not divide
+raises, as the JAX sharding P("data", "seq", "space") does. The train
+step sums the gradients over data x seq (`train/step.py`): the step is the
+one-process step on the global batch, as the JAX trainer's under
+`MeshSpec(data, seq)`. The initial parameters are rank 0's, broadcast over
+the group; a resume is read by every rank from the same file. Only rank 0
+(data 0, seq 0) writes checkpoints and the metrics log and runs the
+in-training evaluation, in one process outside the mesh, as the JAX trainer
+runs it; the other ranks wait for it. The JAX trainer's `space` axis
+(ROADMAP §1 item 7.3's space half, after item 7.2), `seq` for the other
+models (item 7.1b) and uint8 images on the wire are refused.
 """
 
 from __future__ import annotations
@@ -47,7 +55,7 @@ from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
 from ppmstereo_tpu_torch.models.stereoanyvideo import StereoAnyVideo, StereoAnyVideoConfig
 from ppmstereo_tpu_torch.parallel.collectives import broadcast_tensors_
 from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
-from ppmstereo_tpu_torch.parallel.sharding import local_batch
+from ppmstereo_tpu_torch.parallel.sharding import local_batch, local_frames
 from ppmstereo_tpu_torch.train.checkpoints import CheckpointManager
 from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState, param_label
 from ppmstereo_tpu_torch.train.step import to_device, train_step
@@ -62,10 +70,12 @@ class TrainConfig:
     """The JAX package's TrainConfig with its defaults (the shipped recipe).
     model_kwargs: further fields of the model's config (e.g. {"use_cnet":
     False} for PPMStereo). data_parallel: the size of the data axis, 0 for
-    the process group's (`data_parallel_size`). seq_parallel and
-    space_parallel above 1, and wire_uint8, exist for the JAX package's
-    presets and raise in `train` (the port ships f32 images to the card, as
-    the JAX package's wire_dtype is omitted)."""
+    the process group's (`data_parallel_size`). seq_parallel: the size of
+    the seq axis, over which each clip's frames spread (PPMStereo only;
+    sample_len must divide by it). space_parallel above 1 and wire_uint8
+    exist for the JAX package's presets and raise in `train` (the port
+    ships f32 images to the card, as the JAX package's wire_dtype is
+    omitted)."""
 
     model_name: str = "ppmstereo"
     num_steps: int = 200_000
@@ -89,12 +99,29 @@ class TrainConfig:
     wire_uint8: bool = False
 
 
+# the model names whose train-mode forward runs over a seq axis: PPMStereo
+# without the Video-Depth-Anything features (memstereo builds the same model)
+SEQ_MODELS = ("ppmstereo", "memstereo")
+
+
 def check_supported(cfg: TrainConfig) -> None:
-    """Raise for the JAX trainer's options the port does not run."""
-    mesh = {"seq_parallel": cfg.seq_parallel, "space_parallel": cfg.space_parallel}
-    if any(n > 1 for n in mesh.values()):
-        raise NotImplementedError(f"{mesh}: the port trains data-parallel only; seq/space "
-                                  "training is ROADMAP §1 item 7.3")
+    """Raise for the JAX trainer's options the port does not run, and for a
+    clip that the seq axis does not divide (as the JAX package's placement
+    of the batch on its mesh does)."""
+    if cfg.space_parallel > 1:
+        raise NotImplementedError(
+            f"space_parallel={cfg.space_parallel}: the space axis in training is ROADMAP §1 "
+            "item 7.3's space half, after item 7.2 (every convolution of a window sharded "
+            "over space)")
+    if cfg.seq_parallel > 1:
+        if cfg.model_name not in SEQ_MODELS:
+            raise NotImplementedError(
+                f"seq_parallel={cfg.seq_parallel} with model {cfg.model_name!r}: the seq axis "
+                f"runs for {' and '.join(SEQ_MODELS)}; PPMStereo-VDA's and the baselines' is "
+                "ROADMAP §1 item 7.1b")
+        if cfg.sample_len % cfg.seq_parallel:
+            raise ValueError(f"sample_len={cfg.sample_len}: a clip of {cfg.sample_len} frames "
+                             f"does not divide over a seq axis of {cfg.seq_parallel}")
     if cfg.wire_uint8:
         raise NotImplementedError("wire_uint8=True: the port ships f32 images to the card "
                                   "(omitted on purpose, as the predictor's wire_dtype is; "
@@ -115,9 +142,10 @@ def build_train_model(cfg: TrainConfig, mesh=None) -> tuple[torch.nn.Module, boo
     """The train-mode model of `cfg.model_name` (the JAX `build_train_model`'s names and
     config arguments; the time embedding's `num_frames` is the clip length
     for the three models with an SST) and whether it has an uncertainty
-    head. Unknown names raise. `mesh` (a data axis) reaches the PPMStereo
-    family, whose batch mean couples the clips; the other models treat each
-    clip alone."""
+    head. Unknown names raise. `mesh` (data and seq axes) reaches the
+    PPMStereo family, whose batch mean couples the clips and whose frames
+    spread over seq; the other models treat each clip alone and refuse seq
+    (`check_supported`)."""
     name, kwargs = cfg.model_name, cfg.model_kwargs or {}
     precision = {"mixed_precision": cfg.mixed_precision}
     if name in ("ppmstereo", "memstereo", "ppmstereo_vda"):
@@ -198,10 +226,10 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
     raises. `max_steps` stops the run early without changing the schedule
     (which spans cfg.num_steps).
 
-    In a process group (data-parallel, see the module's docstring) a
-    caller's `loader` yields global batches and each rank takes its block;
-    the default loader loads the rank's block alone. A data axis that does
-    not span the group raises.
+    In a process group (see the module's docstring) a caller's `loader`
+    yields global batches and each rank takes its block of clips and of
+    their frames; the default loader loads the data coordinate's block
+    alone. A mesh of data x seq that does not span the group raises.
 
     Every save_freq steps after ckpt_after_steps the state is saved and
     `save_callback(step, state)` runs right after (rank 0). With
@@ -215,34 +243,37 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
     if dev.type == "cuda":
         set_precision()
     world = dist.get_world_size() if dist.is_initialized() else 1
-    dp = data_parallel_size(cfg, world)
-    if dp != world:
-        raise ValueError(f"data_parallel={dp} (batch {cfg.batch_size}) needs a process group "
-                         f"of {dp} ranks, one per card (torchrun --nproc_per_node {dp}); "
-                         f"this one has {world}")
-    mesh = make_mesh(MeshSpec(data=dp)) if dp > 1 else None
-    group = mesh.groups["data"] if mesh is not None else None
+    dp, seq = data_parallel_size(cfg, world), cfg.seq_parallel
+    if dp * seq != world:
+        raise ValueError(f"data_parallel={dp} (batch {cfg.batch_size}) x seq_parallel={seq} "
+                         f"needs a process group of {dp * seq} ranks, one per card (torchrun "
+                         f"--nproc_per_node {dp * seq}); this one has {world}")
+    mesh = make_mesh(MeshSpec(data=dp, seq=seq)) if world > 1 else None
+    group = mesh.replica_group if mesh is not None else None
     rank = mesh.coords["data"] if mesh is not None else 0
+    lead = mesh is None or dist.get_rank() == 0  # data 0, seq 0
     if loader is None:
         loader = fetch_dataloader(crop_size=cfg.crop_size, sample_len=cfg.sample_len,
                                   batch_size=cfg.batch_size, num_workers=cfg.num_workers,
                                   seed=cfg.seed, data_rank=rank, data_size=dp)
+        if seq > 1:
+            loader = _LocalBlocks(loader, mesh, clips=False)
     elif mesh is not None:
-        loader = _LocalBlocks(loader, rank, dp)
+        loader = _LocalBlocks(loader, mesh)
     model, has_uncertainty = build_train_model(cfg, mesh)
     init_model(model, cfg.seed)
     model.to(dev)
     state = TrainState(model, TrainOptimizer(model, num_steps=cfg.num_steps, lr=cfg.lr),
-                       has_uncertainty, data_group=group)
+                       has_uncertainty, replica_group=group)
     counts = {"train": 0, "frozen": 0}
     for name, p in model.named_parameters():
         counts["frozen" if param_label(name) == "frozen" else "train"] += p.numel()
     logging.info(f"model {cfg.model_name}: {counts['train'] / 1e6:.1f}M trainable and "
                  f"{counts['frozen'] / 1e6:.1f}M frozen params on {dev}, "
                  f"{'with' if has_uncertainty else 'no'} uncertainty head"
-                 + (f", rank {rank} of a data axis of {dp}" if dp > 1 else ""))
+                 + (f", mesh {mesh.coords} of {mesh.shape}" if mesh is not None else ""))
 
-    ckpt = CheckpointManager(f"{cfg.exp_dir}/ckpt", write=rank == 0)
+    ckpt = CheckpointManager(f"{cfg.exp_dir}/ckpt", write=lead)
     if ckpt.restore(state):
         logging.info(f"resumed from step {state.step}")
     elif init_params is not None:
@@ -251,7 +282,7 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
     if group is not None:  # every rank starts from rank 0's tensors
         broadcast_tensors_(list(model.parameters()) + list(model.buffers()), group)
 
-    logger = MetricsLogger(cfg.exp_dir, sum_freq=cfg.log_freq, write=rank == 0)
+    logger = MetricsLogger(cfg.exp_dir, sum_freq=cfg.log_freq, write=lead)
     limit = max_steps if max_steps is not None else cfg.num_steps
     # reading the metrics waits for the device: do it at most every 50 steps
     push_every = max(1, min(50, cfg.log_freq))
@@ -270,7 +301,7 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
                 if ckpt.save(state) and save_callback is not None:
                     save_callback(state.step, state)
             if enable_eval and state.step % cfg.eval_freq == 0:
-                if rank == 0:
+                if lead:
                     run_in_training_eval(cfg, model_to_flax(model), state.step,
                                          logger, eval_dataset, device=dev)
                 if group is not None:
@@ -287,12 +318,19 @@ def train(cfg: TrainConfig, loader=None, max_steps: int | None = None,
 
 
 class _LocalBlocks:
-    """A caller's loader of global batches, as this rank's blocks of them
+    """A loader's batches as this rank's part of them on `mesh`: its data
+    coordinate's block of the clips (unless `clips` is False: the loader
+    loads that block alone) and its seq coordinate's block of their frames
     (re-iterable when the loader is)."""
 
-    def __init__(self, loader, rank: int, size: int):
-        self.loader, self.rank, self.size = loader, rank, size
+    def __init__(self, loader, mesh, clips: bool = True):
+        self.loader, self.mesh, self.clips = loader, mesh, clips
 
     def __iter__(self):
+        shape, coords = self.mesh.shape, self.mesh.coords
         for batch in self.loader:
-            yield local_batch(batch, self.rank, self.size)
+            if self.clips:
+                batch = local_batch(batch, coords["data"], shape["data"])
+            if shape["seq"] > 1:
+                batch = local_frames(batch, coords["seq"], shape["seq"])
+            yield batch

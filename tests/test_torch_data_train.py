@@ -33,7 +33,6 @@ FileStore), their bodies from tests/torch_data_workers.py.
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -120,34 +119,6 @@ def test_loss_shares_add_up_to_the_global_loss():
 
 
 # ------------------------------------------------------------ the train step
-def _jax_step(tree: dict, b: dict):
-    """The JAX trainer's step of the tiny PPMStereo on the global batch:
-    (loss, flat gradients, flat parameters after the update) and the
-    metrics."""
-    from ppmstereo_tpu.train import trainer as jtrainer
-    from ppmstereo_tpu.train.state import create_train_state
-    from ppmstereo_tpu_torch.utils.weights import flatten_params
-
-    jcfg, _ = tp.configs("ppmstereo", 5, 2)  # the anchor's 5-frame time embedding
-    model, _ = jtrainer.build_train_model(jcfg)
-    j = {k: jnp.asarray(v) for k, v in b.items()}
-
-    def loss_fn(params):
-        preds, uncs = model.apply(params, j["left"], j["right"])
-        return jsequence_loss(preds, j["disparity"], j["valid"], uncertainties=uncs)
-
-    # LLVM's expensive passes off: the same function, compiled in 40 s
-    # instead of 130 s here (the whole model's value_and_grad)
-    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(tree).compile(
-        compiler_options={"xla_llvm_disable_expensive_passes": True})
-    (loss, metrics), grads = step(tree)
-    state = create_train_state(model, tree, num_steps=tp.NUM_STEPS, lr=tp.LR)
-    state = state.apply_gradients(grads=grads)
-    host = lambda t: flatten_params(jax.tree_util.tree_map(np.asarray, t))  # noqa: E731
-    return (float(loss), host(grads), host(state.params)), {k: float(v) for k, v in
-                                                             metrics.items()}
-
-
 def test_data_parallel_step_matches_the_jax_step_on_the_global_batch(record_property):
     flat, tree = load_anchor()
     batch = _global_batch(2, 3, 64, 128)
@@ -157,7 +128,8 @@ def test_data_parallel_step_matches_the_jax_step_on_the_global_batch(record_prop
     with ThreadPoolExecutor(1) as pool:  # the processes run while JAX compiles
         group = pool.submit(run_group, workers.train_steps, 2,
                             (str(ANCHOR), batch, ds_batch, ds_kwargs), timeout_s=400, threads=2)
-        jax_run, jax_metrics = _jax_step(tree, batch)
+        # the anchor's 5-frame time embedding
+        jax_run, jax_metrics = tp.jax_ppm_step(tree, batch)
         ranks = group.result()
 
     for rank, res in enumerate(ranks):

@@ -58,6 +58,7 @@ def _losses(path):
 
 def test_train_cli_data_parallel_and_resume(tmp_path):
     one = tmp_path / "one"
+    workers.tensorboard_without_tensorflow()
     state = tcli.main(_args(one, 2))
     assert state.step == 2
     want = torch.load(one / "ckpt" / "step_2.pt", weights_only=True)["model"]

@@ -173,18 +173,18 @@ def test_mesh_layout_and_size_check():
 def test_space_mesh_is_for_inference_and_other_axes_wait():
     """No process group is needed to refuse a mesh. The data axis is live
     (tests/test_torch_data_*.py): its batch-mean group reaches every stage.
-    The seq axis is live in inference (tests/test_torch_seq_inference.py);
-    in training it waits for ROADMAP §1 item 7.3, and for PPMStereo-VDA and
-    the rest of the zoo for item 7.1b."""
+    The seq axis is live in inference (tests/test_torch_seq_inference.py)
+    and in training (tests/test_torch_seq_train.py); for PPMStereo-VDA and
+    the rest of the zoo it waits for ROADMAP §1 item 7.1b. The space axis in
+    training waits for item 7.3's space half, after item 7.2."""
     coords = {"data": 0, "seq": 0, "space": 0}
     space = Mesh(MeshSpec(space=2), coords, {"data": None, "seq": None, "space": object()})
-    with pytest.raises(ValueError, match="inference only"):
+    with pytest.raises(NotImplementedError, match=r"item 7\.3's space half, after item 7\.2"):
         PPMStereo(iters=2, test_mode=False, mesh=space)
     seq_group = object()
     seq = Mesh(MeshSpec(seq=2), coords, {"data": None, "seq": seq_group, "space": None})
-    assert PPMStereo(iters=2, test_mode=True, mesh=seq).seq_group is seq_group
-    with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.3"):
-        PPMStereo(iters=2, test_mode=False, mesh=seq)
+    for test_mode in (True, False):
+        assert PPMStereo(iters=2, test_mode=test_mode, mesh=seq).seq_group is seq_group
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1b"):
         PPMStereo(PPMStereoConfig(use_vfm=True), iters=2, test_mode=True, mesh=seq)
     with pytest.raises(NotImplementedError, match=r"ROADMAP §1 item 7\.1b"):

@@ -16,6 +16,7 @@ from ppmstereo_tpu_torch.data.datasets import SyntheticStereoDataset
 from ppmstereo_tpu_torch.models.zoo import model_zoo as tmodel_zoo
 from ppmstereo_tpu_torch.train import trainer as ttrainer
 from tests import torch_train_parity as tp
+from tests.torch_data_workers import tensorboard_without_tensorflow
 
 torch.set_num_threads(2)
 
@@ -44,6 +45,7 @@ def test_evaluation_and_checkpoint_hold_the_trained_weights(name, tmp_path, monk
                                mixed_precision=False, exp_dir=str(tmp_path), eval_freq=1,
                                save_freq=1, ckpt_after_steps=0, log_freq=1)
     clip = SyntheticStereoDataset(num_seqs=1, sample_len=2, height=64, width=128)
+    tensorboard_without_tensorflow()
     state = ttrainer.train(cfg, loader=[tp.batch(2, 64, 128)], max_steps=1, enable_eval=True,
                            eval_dataset=clip, device="cpu")
     trained = state.model.state_dict()

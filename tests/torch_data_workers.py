@@ -12,6 +12,18 @@ import torch
 NUM_STEPS, LR = 1000, 3e-4  # tests/torch_train_parity.py's schedule
 
 
+def tensorboard_without_tensorflow() -> None:
+    """Let TensorBoard's event writer (the trainer's MetricsLogger) run on
+    its own TensorFlow-free stub in this process. Where TensorFlow is
+    installed, the writer's first event imports it: ~22 s of a process's
+    time on an 8-core CPU host, for events that no test reads. The event
+    file is written either way."""
+    import sys
+    import types
+
+    sys.modules.setdefault("tensorboard.compat.notf", types.ModuleType("tensorboard.compat.notf"))
+
+
 def _mesh(spec):
     from ppmstereo_tpu_torch.parallel.mesh import MeshSpec, make_mesh
 
@@ -42,17 +54,18 @@ def loss_shares(rank, world, preds, gt, valid, uncs):
     return float(share), {k: float(v) for k, v in metrics.items()}, float(alone)
 
 
-def _dp_step(rank, world, model, has_unc, batch, mesh):
-    """One train step of `model` on this rank's block of the global
-    `batch`: (metrics, the reduced gradients, the parameters after the
-    update) as flat flax names."""
-    from ppmstereo_tpu_torch.parallel.sharding import local_batch
+def mesh_step(model, has_unc, batch, mesh):
+    """One train step of `model` on this rank's part of the global `batch`
+    (its data coordinate's block of the clips, and over a seq axis its
+    block of their frames): (metrics, the reduced gradients, the
+    parameters after the update) as flat flax names."""
+    from ppmstereo_tpu_torch.parallel.sharding import local_batch, local_frames
     from ppmstereo_tpu_torch.train.state import TrainOptimizer, TrainState
     from ppmstereo_tpu_torch.train.step import to_device, train_step
 
-    group = None if mesh is None else mesh.groups["data"]
+    group = None if mesh is None else mesh.replica_group
     opt = TrainOptimizer(model, num_steps=NUM_STEPS, lr=LR)
-    state = TrainState(model, opt, has_unc, data_group=group)
+    state = TrainState(model, opt, has_unc, replica_group=group)
     names = {id(p): n for n, p in model.named_parameters()}
     grads = {}
     step = opt.step
@@ -63,13 +76,15 @@ def _dp_step(rank, world, model, has_unc, batch, mesh):
         return step()
 
     opt.step = recording_step
-    mine = batch if mesh is None else local_batch(batch, rank, world)
-    state, metrics = train_step(state, to_device(mine, torch.device("cpu")))
+    if mesh is not None:
+        batch = local_batch(batch, mesh.coords["data"], mesh.shape["data"])
+        batch = local_frames(batch, mesh.coords["seq"], mesh.shape["seq"])
+    state, metrics = train_step(state, to_device(batch, torch.device("cpu")))
     return ({k: float(v) for k, v in metrics.items()}, _flat(grads, model),
             _flat(dict(model.state_dict()), model))
 
 
-def _ppm_model(anchor_path, mesh):
+def ppm_model(anchor_path, mesh):
     from ppmstereo_tpu_torch.models.ppm_stereo import PPMStereo, PPMStereoConfig
     from ppmstereo_tpu_torch.utils.weights import load_flax_params, load_npz
 
@@ -89,17 +104,16 @@ def train_steps(rank, world, anchor_path, batch, ds_batch, ds_kwargs):
     from ppmstereo_tpu_torch.utils.init import init_model
 
     mesh = _mesh((world, 1, 1))
-    out = {"sound": _dp_step(rank, world, _ppm_model(anchor_path, mesh), True, batch, mesh)}
+    out = {"sound": mesh_step(ppm_model(anchor_path, mesh), True, batch, mesh)}
     batch_mean = ppm_stereo.batch_mean
     ppm_stereo.batch_mean = lambda x, group=None: batch_mean(x)
     try:
-        out["local_mean"] = _dp_step(rank, world, _ppm_model(anchor_path, mesh), True, batch,
-                                     mesh)
+        out["local_mean"] = mesh_step(ppm_model(anchor_path, mesh), True, batch, mesh)
     finally:
         ppm_stereo.batch_mean = batch_mean
     model, has_unc = build_train_model(TrainConfig(**ds_kwargs), mesh)
     init_model(model, 0)
-    out["dynamicstereo"] = _dp_step(rank, world, model, has_unc, ds_batch, mesh)
+    out["dynamicstereo"] = mesh_step(model, has_unc, ds_batch, mesh)
     return out
 
 
@@ -112,7 +126,7 @@ def one_process_step(cfg_kwargs, batch):
 
     model, has_unc = build_train_model(TrainConfig(**cfg_kwargs))
     init_model(model, 0)
-    return _dp_step(0, 1, model, has_unc, batch, None)
+    return mesh_step(model, has_unc, batch, None)
 
 
 def fake_window_fn(left, right):
@@ -187,6 +201,7 @@ def train_cli(rank, world, args):
     parameters as numpy)."""
     from ppmstereo_tpu_torch.cli import train as cli
 
+    tensorboard_without_tensorflow()
     saves = []
     save = torch.save
     torch.save = lambda obj, f, *a, **k: saves.append(str(f)) or save(obj, f, *a, **k)

@@ -1,4 +1,5 @@
-"""Process bodies for tests/test_torch_seq_inference.py, run by
+"""Process bodies for tests/test_torch_seq_inference.py and
+tests/test_torch_seq_train.py, run by
 `ppmstereo_tpu_torch.parallel.launch.run_group` in spawned processes. They
 import torch and the port only, so a spawned process starts quickly.
 Results travel back as numpy arrays and plain values."""
@@ -200,4 +201,155 @@ def four_ranks(rank, world, anchor_path, video):
             return model(left, right)
 
         out[name] = ParallelWindowPredictor(window_fn, m, kernel_size=K, device="cpu")(clip)
+    return out
+
+
+# ------------------------------------------------------------ seq training
+def local_gather_grad(collectives):
+    """The fault: the gather's backward keeps this rank's block of its own
+    cotangent (the other ranks' cotangents of its frames are lost). Returns
+    the undo."""
+    import torch.distributed as dist
+
+    gather = collectives._GatherFrames
+    backward = gather.backward
+
+    def local(ctx, grad):
+        me, size = dist.get_rank(ctx.group), dist.get_world_size(ctx.group)
+        return grad.chunk(size, dim=1)[me].contiguous(), None, None
+
+    gather.backward = staticmethod(local)
+    return lambda: setattr(gather, "backward", backward)
+
+
+def dropped_halo_grad(collectives):
+    """The fault: the halo's backward keeps the cotangent of the rank's own
+    frames and drops the halos' (nothing goes back to the neighbours).
+    Returns the undo."""
+    halo = collectives._TimeHalo
+    backward = halo.backward
+
+    def dropped(ctx, grad):
+        h = ctx.h
+        return grad[:, h: grad.shape[1] - h].contiguous(), None, None, None
+
+    halo.backward = staticmethod(dropped)
+    return lambda: setattr(halo, "backward", backward)
+
+
+TRAIN_FAULTS = {"local_gather_grad": local_gather_grad, "dropped_halo_grad": dropped_halo_grad}
+# (name, frames a rank, halo): the gather, halos of 1 and 2, and a block
+# thinner than its halo (through the gather)
+COLLECTIVE_CASES = (("gather", 2, 0), ("halo_1", 2, 1), ("halo_2", 2, 2), ("halo_thin", 1, 2))
+FD_EPS = 1e-6
+
+
+def collective_grads(group) -> dict:
+    """The backward of gather_frames and time_halo over the seq `group`, in
+    f64, for each of COLLECTIVE_CASES: every rank takes the loss
+    <W_r, op(x_r)> with its own seeded cotangent W_r, and the gradient of
+    its block x_r must be its block of the gradient of the ranks' summed
+    losses. Read against (a) the same ops on the unsharded tensor (the
+    gathered clip, or the zero-padded clip's window of each rank),
+    differentiated by autograd, and (b) central differences of the summed
+    loss, element by element of the whole clip (all ranks step together).
+    Returns {case: (max |grad - unsharded|, max |grad - differences|)}."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from ppmstereo_tpu_torch.parallel.collectives import all_reduce_, gather_frames, time_halo
+
+    me, size = dist.get_rank(group), dist.get_world_size(group)
+    out = {}
+    for name, n, h in COLLECTIVE_CASES:
+        rng = np.random.default_rng(5)
+        full = torch.from_numpy(rng.standard_normal((2, size * n, 3, 2)))
+        wide = n * size if h == 0 else n + 2 * h
+        weights = [torch.from_numpy(np.random.default_rng(100 + r).standard_normal(
+            (2, wide, 3, 2))) for r in range(size)]
+
+        def op(x):
+            return gather_frames(x, group) if h == 0 else time_halo(x, h, group)
+
+        def unsharded(x, r):
+            return x if h == 0 else F.pad(x, (0, 0, 0, 0, h, h))[:, r * n: r * n + n + 2 * h]
+
+        x = full[:, me * n: (me + 1) * n].clone().requires_grad_(True)
+        (weights[me] * op(x)).sum().backward()
+        ref = full.clone().requires_grad_(True)
+        sum((weights[r] * unsharded(ref, r)).sum() for r in range(size)).backward()
+        want = ref.grad[:, me * n: (me + 1) * n]
+
+        def total(x_local):  # the ranks' summed loss, on every rank
+            with torch.no_grad():
+                loss = (weights[me] * op(x_local)).sum().reshape(1)
+            return float(all_reduce_(loss, group))
+
+        numeric = torch.zeros_like(full)
+        flat = numeric.view(-1)
+        for e in range(full.numel()):
+            steps = []
+            for sign in (1.0, -1.0):
+                bumped = full.clone()
+                bumped.view(-1)[e] += sign * FD_EPS
+                steps.append(total(bumped[:, me * n: (me + 1) * n].contiguous()))
+            flat[e] = (steps[0] - steps[1]) / (2 * FD_EPS)
+        numeric = numeric[:, me * n: (me + 1) * n]
+        out[name] = (float((x.grad - want).abs().max()), float((x.grad - numeric).abs().max()))
+    return out
+
+
+def seq_train(rank, world, anchor_path, batch, cli_args):
+    """Seq training over a group of 2 (seq 2): the collectives' backward
+    (`collective_grads`); one train step of the tiny PPMStereo from the
+    anchor on this rank's frames of `batch` (sound, then with each of
+    TRAIN_FAULTS), with the bytes received over seq in its forward and its
+    backward; the train CLI with --seq_parallel 2 for one step (`cli_args`
+    plus a checkpoint directory). Rank 1 then takes the port's one-process
+    step on the whole batch (the reference)."""
+    from ppmstereo_tpu_torch.cli import train as cli
+    from ppmstereo_tpu_torch.parallel import collectives, sharding
+    from tests.torch_data_workers import mesh_step, ppm_model, tensorboard_without_tensorflow
+
+    mesh = _mesh((1, world, 1))
+    out = {"units": collective_grads(mesh.groups["seq"])}
+    sharding.RECEIVED.update(dict.fromkeys(sharding.RECEIVED, 0))
+    out["sound"] = mesh_step(ppm_model(anchor_path, mesh), True, batch, mesh)
+    out["received"] = dict(sharding.RECEIVED)
+    for name, fault in TRAIN_FAULTS.items():
+        undo = fault(collectives)
+        try:
+            out[name] = mesh_step(ppm_model(anchor_path, mesh), True, batch, mesh)
+        finally:
+            undo()
+    tensorboard_without_tensorflow()
+    saves = []
+    save = torch.save
+    torch.save = lambda obj, f, *a, **k: saves.append(str(f)) or save(obj, f, *a, **k)
+    sharding.RECEIVED.update(dict.fromkeys(sharding.RECEIVED, 0))
+    try:
+        state = cli.main(cli_args)
+    finally:
+        torch.save = save
+    out["cli"] = dict(step=state.step, count=state.optimizer.count, saves=saves,
+                      received=dict(sharding.RECEIVED),
+                      params={k: v.numpy() for k, v in state.model.state_dict().items()})
+    del state
+    if rank == 1:
+        out["one"] = mesh_step(ppm_model(anchor_path, None), True, batch, None)
+    return out
+
+
+def data_seq_train(rank, world, anchor_path, batch):
+    """Over a group of 4: one train step of the tiny PPMStereo at data x seq
+    = 2 x 2 on this rank's clip's frames of `batch`; the collectives'
+    backward over a seq axis of 4 (two middle ranks). Rank 3 then takes
+    the port's one-process step on the whole batch (the reference)."""
+    from tests.torch_data_workers import mesh_step, ppm_model
+
+    mesh = _mesh((2, 2, 1))
+    out = {"step": mesh_step(ppm_model(anchor_path, mesh), True, batch, mesh)}
+    out["units"] = collective_grads(_mesh((1, world, 1)).groups["seq"])
+    if rank == 3:
+        out["one"] = mesh_step(ppm_model(anchor_path, None), True, batch, None)
     return out

@@ -65,6 +65,7 @@ from ppmstereo_tpu_torch.utils.weights import (
     state_dict_to_flax,
     transposed_kernels,
 )
+from tests.torch_data_workers import tensorboard_without_tensorflow
 from tests.torch_zoo_parity import port_init_tree
 
 LOSS_TOL = 1e-5
@@ -119,6 +120,30 @@ def jax_step(jcfg, tree: dict, b: dict):
     state = state.apply_gradients(grads=grads)
     host = lambda t: flatten_params(jax.tree_util.tree_map(np.asarray, t))  # noqa: E731
     return float(loss), host(grads), host(state.params)
+
+
+def jax_ppm_step(tree: dict, b: dict, num_frames: int = 5, iters: int = 2):
+    """The JAX trainer's step of the tiny PPMStereo (f32, the anchor's
+    `num_frames`-frame time embedding, `iters` iterations) on the batch
+    `b`: ((loss, flat gradients, flat parameters after the update), the
+    metrics). The whole model's value_and_grad is compiled with LLVM's
+    expensive passes off (FAST_COMPILE): the same function."""
+    jcfg, _ = configs("ppmstereo", num_frames, iters)
+    model, _ = jtrainer.build_train_model(jcfg)
+    j = {k: jnp.asarray(v) for k, v in b.items()}
+
+    def loss_fn(params):
+        preds, uncs = model.apply(params, j["left"], j["right"])
+        return jsequence_loss(preds, j["disparity"], j["valid"], uncertainties=uncs)
+
+    step = jax.jit(jax.value_and_grad(loss_fn, has_aux=True)).lower(tree).compile(
+        compiler_options=FAST_COMPILE)
+    (loss, metrics), grads = step(tree)
+    state = create_train_state(model, tree, num_steps=NUM_STEPS, lr=LR)
+    state = state.apply_gradients(grads=grads)
+    host = lambda t: flatten_params(jax.tree_util.tree_map(np.asarray, t))  # noqa: E731
+    return (float(loss), host(grads), host(state.params)), {k: float(v) for k, v in
+                                                             metrics.items()}
 
 
 def port_model(tcfg, flat: dict):
@@ -237,6 +262,7 @@ def tiny_cli_run(name: str, tmp_path, frames: int = 2):
     from it and takes one more. In f32: PyTorch's bf16 convolutions on the
     CPU are far slower (minutes a step with 2 threads). The checkpoints are
     deleted at the end: pytest keeps its last runs' temporary directories."""
+    tensorboard_without_tensorflow()
     args = ["--name", name, "--device", "cpu", "--image_size", "64", "128", "--sample_len",
             str(frames), "--train_iters", "1", "--num_workers", "1", "--no_mixed_precision",
             "--ckpt_path", str(tmp_path), "log_freq=1"]
